@@ -1,0 +1,141 @@
+"""Device dispatch, build at first use, and launch counts for the kernels.
+
+A tensor on the CPU goes to the kernel's plain PyTorch version; a tensor on
+CUDA goes to the hand-written kernel, or raises. There is no environment
+switch and no fallback: the device of the input decides.
+
+The kernels are CUDA C++ with a plain C interface (`csrc/*.cu`), compiled
+by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
+`build/kernels/` of the checkout the first time a CUDA tensor needs them
+(or when `build` is called), and loaded with ctypes. The library's file
+name carries a hash of its source, so an edited source is rebuilt.
+
+`LAUNCHES` counts, per kernel, the launches made through `topn_lp` and
+`awc_fw`; `reset_launches` sets them to 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+import torch
+
+from repro_torch.kernels import awc_fw as _awc
+from repro_torch.kernels import topn_lp as _topn
+
+KERNELS = {m.NAME: m for m in (_topn, _awc)}
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, then PATH, then /usr/local/cuda/bin."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for path in candidates:
+        if path.is_file():
+            return str(path)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    src = KERNELS[name].SOURCE
+    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                          ).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile the named kernels (all by default) that are not built yet,
+    one nvcc process per source, all started together. Returns the seconds
+    each build took (0.0 for a library already on disk)."""
+    names = list(KERNELS) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, seconds = {}, {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            seconds[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(KERNELS[name].SOURCE)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return seconds
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        fn = getattr(lib, KERNELS[name].ENTRY)
+        fn.argtypes = KERNELS[name].ARGTYPES
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def _cuda_ready(t, name: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} takes CPU or CUDA tensors, got {t.device}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{name} was given a tensor on {t.device} but no "
+                           "CUDA device is available")
+
+
+def topn_lp(score, cost, n, *, equality: bool = True):
+    """Top-n-by-score cost reduction: score/cost (B, K), n (B,) -> (B,)."""
+    if score.device.type == "cpu":
+        return _topn.topn_lp_plain(score, cost, n, equality=equality)
+    _cuda_ready(score, "topn_lp")
+    out = _topn.topn_lp_cuda(library("topn_lp"), score, cost, n,
+                             equality=equality)
+    if out.numel():                  # an empty batch launches nothing
+        LAUNCHES["topn_lp"] += 1
+    return out
+
+
+def awc_fw(z, mu, cost, lams, n):
+    """Fused AWC FW step: z/mu/cost (B, K), lams (B, G), n (B,) ->
+    (g (B, K), costs (B, G))."""
+    if z.device.type == "cpu":
+        return _awc.awc_fw_plain(z, mu, cost, lams, n)
+    _cuda_ready(z, "awc_fw")
+    g, costs = _awc.awc_fw_cuda(library("awc_fw"), z, mu, cost, lams, n)
+    if costs.numel():                # an empty batch launches nothing
+        LAUNCHES["awc_fw"] += 1
+    return g, costs

@@ -10,3 +10,8 @@ import pytest
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped when none is present")

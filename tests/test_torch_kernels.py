@@ -1,0 +1,185 @@
+"""The port's kernel modules on the CPU: each plain version against
+`repro.kernels.ref` at the shapes and tie/positivity cases of
+`tests/test_kernels.py`, and the device dispatch of `kernels.ops` — a CPU
+tensor takes the plain version, a CUDA tensor the kernel or an error, never
+the plain version. Masks are held exact; gradients to atol 2e-6 (log1p/exp
+may differ from XLA's in the last bit); costs to atol 1e-6 at the fleet's
+K = 9, and at wider K to the float32 error of two summation orders over the
+same selected terms, K·2⁻²⁴·Σ|cost| (the plain versions sum in arm-index
+order, as the kernels do; XLA sums in its own order). The kernels
+themselves are held against these plain versions on the card by
+`tests/test_torch_cuda.py` and `chip_smoke.py`."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import ranks as jranks
+from repro.kernels import ref
+from repro_torch.core import ranks
+from repro_torch.kernels import awc_fw as awc
+from repro_torch.kernels import ops
+from repro_torch.kernels import topn_lp as topn
+
+torch.set_num_threads(1)
+
+
+def t(x, dtype=torch.float32):
+    return torch.tensor(np.asarray(x), dtype=dtype)
+
+
+def assert_costs_close(got, want, cost):
+    """atol 1e-6 at K <= 9; else the two-order float32 summation bound."""
+    k = cost.shape[-1]
+    bound = 1e-6 if k <= 9 else k * 2.0 ** -24 * np.abs(cost).sum(-1)
+    assert np.all(np.abs(got - want) <= bound), np.abs(got - want).max()
+
+
+def topn_inputs(b, k, seed):
+    rng = np.random.default_rng(seed)
+    score = rng.normal(size=(b, k)).astype(np.float32)
+    score[::4, 1::3] = score[::4, :1]          # exact ties inside rows
+    cost = rng.uniform(size=(b, k)).astype(np.float32)
+    n = rng.integers(1, k + 1, b).astype(np.int32)
+    return score, cost, n
+
+
+@pytest.mark.parametrize("b,k", [(4, 9), (8, 128), (5, 130), (33, 40)])
+@pytest.mark.parametrize("equality", [True, False])
+def test_topn_lp_plain_matches_ref(b, k, equality):
+    score, cost, n = topn_inputs(b, k, b * 100 + k)
+    want = np.asarray(ref.topn_lp(jnp.asarray(score), jnp.asarray(cost),
+                                  jnp.asarray(n), equality=equality))
+    got = topn.topn_lp_plain(t(score), t(cost), t(n, torch.int32),
+                             equality=equality).numpy()
+    assert_costs_close(got, want, cost)
+    mask_w = np.asarray(jranks.topn_mask(jnp.asarray(score), jnp.asarray(n),
+                                         equality))
+    mask_p = ranks.topn_mask(t(score), t(n, torch.int32), equality).numpy()
+    assert np.array_equal(mask_w, mask_p)
+    assert np.array_equal(got, ops.topn_lp(t(score), t(cost),
+                                           t(n, torch.int32),
+                                           equality=equality).numpy())
+
+
+def test_topn_lp_plain_tie_order():
+    score = np.float32([[0.5, 0.7, 0.5, 0.7, 0.1], [1.0] * 5])
+    cost = np.float32([[1.0, 2.0, 4.0, 8.0, 16.0]] * 2)
+    n = np.int32([3, 2])
+    got = topn.topn_lp_plain(t(score), t(cost), t(n, torch.int32)).numpy()
+    assert np.array_equal(got, np.float32([11.0, 3.0]))
+    want = np.asarray(ref.topn_lp(jnp.asarray(score), jnp.asarray(cost),
+                                  jnp.asarray(n)))
+    assert np.array_equal(got, want)
+
+
+def awc_inputs(b, k, g, seed):
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(size=(b, k)).astype(np.float32)
+    mu = rng.uniform(0.05, 0.99, (b, k)).astype(np.float32)
+    mu[::5, :2] = 1.0                          # clipped to 1 − 1e−6
+    cost = rng.uniform(0.01, 0.6, (b, k)).astype(np.float32)
+    lams = rng.uniform(0.0, 4.0, (b, g)).astype(np.float32)
+    n = rng.integers(1, k + 1, b).astype(np.int32)
+    return z, mu, cost, lams, n
+
+
+@pytest.mark.parametrize("b,k,g", [(4, 9, 25), (8, 128, 4), (5, 130, 3),
+                                   (33, 40, 2)])
+def test_awc_fw_plain_matches_ref(b, k, g):
+    z, mu, cost, lams, n = awc_inputs(b, k, g, b * 1000 + k + g)
+    gw, cw = ref.awc_fw(jnp.asarray(z), jnp.asarray(mu), jnp.asarray(cost),
+                        jnp.asarray(lams), jnp.asarray(n))
+    gp, cp = awc.awc_fw_plain(t(z), t(mu), t(cost), t(lams),
+                              t(n, torch.int32))
+    np.testing.assert_allclose(gp.numpy(), np.asarray(gw), atol=2e-6, rtol=0)
+    assert_costs_close(cp.numpy(), np.asarray(cw), cost[:, None, :])
+    # masks exact: the plain version's vertices on the reference's gradient
+    mask_w = np.asarray(jax.vmap(lambda a, c, l, m: jranks.lagrangian_topn_mask(
+        a, c, l, m, False))(gw, jnp.asarray(cost), jnp.asarray(lams),
+                            jnp.asarray(n)))
+    mask_p = ranks.lagrangian_topn_mask(t(np.asarray(gw)), t(cost), t(lams),
+                                        t(n, torch.int32), False).numpy()
+    assert np.array_equal(mask_w, mask_p)
+    go, co = ops.awc_fw(t(z), t(mu), t(cost), t(lams), t(n, torch.int32))
+    assert np.array_equal(go.numpy(), gp.numpy())
+    assert np.array_equal(co.numpy(), cp.numpy())
+
+
+def test_awc_fw_plain_tie_order_and_positivity():
+    z = np.zeros((2, 4), np.float32)           # gradient == clipped mu
+    mu = np.float32([[0.5, 0.5, 0.25, 0.5], [0.5, 0.25, 0.125, 0.0625]])
+    cost = np.float32([[1.0, 2.0, 1.0, 4.0], [1.0, 1.0, 1.0, 1.0]])
+    lams = np.float32([[0.0, 0.25], [0.0, 0.25]])
+    n = np.int32([3, 2])
+    _, cw = ref.awc_fw(jnp.asarray(z), jnp.asarray(mu), jnp.asarray(cost),
+                       jnp.asarray(lams), jnp.asarray(n))
+    _, cp = awc.awc_fw_plain(t(z), t(mu), t(cost), t(lams), t(n, torch.int32))
+    assert np.array_equal(cp.numpy(), np.asarray(cw))
+    assert cp[0, 1] == 1.0     # row 0, λ=0.25: only arm 0 has a positive score
+
+
+def test_awc_fw_plain_gradient_is_exact_on_the_z0_rows():
+    """At z̃ = 0 the gradient is the clipped μ exactly (log1p(0) = 0 and
+    exp(0) = 1) — the rows the first FW step of every tenant sees."""
+    mu = np.float32([[0.3, 1.0, 0.999999, 0.0, 0.5]])
+    g, _ = awc.awc_fw_plain(t(np.zeros_like(mu)), t(mu), t(np.ones_like(mu)),
+                            t(np.float32([[1.0]])), t(np.int32([2]),
+                                                      torch.int32))
+    assert np.array_equal(g.numpy(), np.clip(mu, 0, np.float32(1 - 1e-6)))
+
+
+# ================================================== dispatch: no fallback
+class _ClaimsCuda:
+    """A stand-in tensor that says it lives on CUDA (this host has none)."""
+    device = torch.device("cuda", 0)
+    dtype = torch.float32
+    shape = (2, 9)
+
+
+def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+    monkeypatch.setattr(topn, "topn_lp_plain", boom)
+    monkeypatch.setattr(awc, "awc_fw_plain", boom)
+    x = _ClaimsCuda()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.topn_lp(x, x, x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.awc_fw(x, x, x, x, x)
+    assert ops.LAUNCHES == {"topn_lp": 0, "awc_fw": 0}
+
+
+def test_other_devices_raise():
+    x = torch.zeros((2, 9), device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        ops.topn_lp(x, x, torch.zeros((2,), dtype=torch.int32,
+                                      device="meta"))
+
+
+def test_build_needs_nvcc(monkeypatch, tmp_path):
+    """Without nvcc the build raises; it never substitutes anything."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(ops, "BUILD_DIR", tmp_path / "kernels")
+    import pathlib
+    real = pathlib.Path.is_file
+    monkeypatch.setattr(pathlib.Path, "is_file",
+                        lambda p: False if p.name == "nvcc" else real(p))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        ops.build(["topn_lp"])
+
+
+def test_kernel_sources_and_build_flags():
+    """Each kernel is CUDA C++ in the repo, built for sm_90a with a plain C
+    entry; the library name follows the source's content."""
+    for name, mod in ops.KERNELS.items():
+        src = mod.SOURCE.read_text()
+        assert mod.SOURCE.suffix == ".cu"
+        assert f'extern "C" int {mod.ENTRY}' in src
+        assert "cudaGetLastError" in src
+        assert name in ops.library_path(name).name
+        assert mod.REPLACES.startswith(f"src/repro/kernels/{name}.py:")
+    assert "arch=compute_90a,code=sm_90a" in ops.NVCC_FLAGS
+    assert ops.BUILD_DIR.parts[-2:] == ("build", "kernels")

@@ -15,12 +15,12 @@ Phases, each of which fails the run on any mismatch:
   5. fleet      the main path: `simulate_fleet` on the card, 4096 tenants in
                 thirds of AWC, SUC and AIC on the paper's pool, 128 rounds;
                 launch counts must match the round structure
-  6. quickstart `bandit.simulate("c2mabv")` with examples/quickstart.py's
+  6. profile    where a fleet round's time goes (printed, not gated):
+                host-clock times of its parts, and a `torch.profiler` trace
+                of a few rounds for the device's busy share and the kernels
+                launched per round
+  7. quickstart `bandit.simulate("c2mabv")` with examples/quickstart.py's
                 settings must reach its verdict, violation ≈ 0
-
-``--profile-rounds N`` (off by default) adds a breakdown of the fleet round:
-host-clock times of its parts and a `torch.profiler` trace of N rounds for
-the device's busy share and the kernels launched per round.
 
 The next-to-last line of output is one JSON object describing every kernel;
 the last is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -28,7 +28,6 @@ the repository beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import sys
@@ -44,6 +43,7 @@ sys.path.insert(0, str(ROOT / "src"))
 TENANTS = 4096                   # the fleet: thirds of AWC, SUC, AIC
 ROUNDS = 128                     # fleet rounds (phase 5)
 DECISION_ROUNDS = 16             # rounds before the decision check (phase 4)
+PROFILE_ROUNDS = 4               # rounds traced by the profiler (phase 6)
 QUICKSTART_ROUNDS = 2000         # examples/quickstart.py's T (phase 6)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
@@ -117,18 +117,33 @@ def phase_build(ops) -> None:
 
 def phase_kernels(ops, topn, awc, dev):
     """Kernel against plain version; returns per-kernel measurements."""
+    from repro_torch.core import relax
     gen = torch.Generator().manual_seed(0)
     results = {}
 
     # ---- topn_lp: score rows w − λc as the solver forms them
     def topn_rows(b, k):
-        w = torch.rand((b, k), generator=gen)
-        lam = 2.0 ** torch.randint(0, 25, (b, 1), generator=gen).float()
-        c = torch.rand((b, k), generator=gen) * 0.8
-        score = w - lam * 1e-6 * c
+        """As `relax._lagrangian_costs` forms them: per (w, c, n) row a
+        batch of GRID_POINTS probe λ's when b allows (a mantissa round),
+        else one. λ is an octave 2^e times a dyadic mantissa from 0 or 1,
+        capped at 2^LAM_MAX_EXP, so most rows hold the large-λ regime where
+        every score is negative; c has zeros (an unexplored arm's LCB)."""
+        g = relax.GRID_POINTS if b % relax.GRID_POINTS == 0 else 1
+        r = b // g
+        w = torch.rand((r, k), generator=gen)
+        c = torch.rand((r, k), generator=gen) * 0.8
+        c[::3, ::4] = 0.0
+        e = torch.randint(0, relax.LAM_MAX_EXP + 1, (r, 1), generator=gen)
+        m0 = torch.randint(0, 2, (r, 1), generator=gen).float()
+        lams = torch.minimum(2.0 ** e.float() * (m0 + torch.arange(g) / g),
+                             torch.tensor(2.0 ** relax.LAM_MAX_EXP))
+        score = (w[:, None, :] - lams[:, :, None] * c[:, None, :])
+        score = score.reshape(b, k)
         score[::7, 1::2] = score[::7, :1]                 # exact ties
-        n = torch.randint(1, k + 1, (b,), generator=gen, dtype=torch.int32)
-        return score.to(dev), c.to(dev), n.to(dev)
+        cost = c[:, None, :].expand(r, g, k).reshape(b, k)
+        n = torch.randint(1, k + 1, (r, 1), generator=gen, dtype=torch.int32)
+        n = n.expand(r, g).reshape(b)
+        return tuple(x.contiguous().to(dev) for x in (score, cost, n))
 
     cases = [("main", 174784, 9), ("B512K9", 512, 9), ("B4096K9", 4096, 9),
              ("B1024K128", 1024, 128), ("K130", 5, 130), ("B33", 33, 40)]
@@ -252,8 +267,11 @@ def round_margin(z, key) -> float:
     return margin
 
 
-def phase_decision(pool, dev, m: int, rounds: int) -> None:
+def phase_decision(pool, dev, m: int, rounds: int):
+    """Card against CPU on one decision; returns the fleet (cfg, state)."""
     from repro_torch import prng
+    from repro_torch.core import confidence as cb
+    from repro_torch.core import relax
     from repro_torch.router import fleet
     _, _, cfg = mixed_fleet(pool, m, 128, dev)
     res = fleet.simulate_fleet(pool, cfg, T=rounds, seed=1, device=dev)
@@ -261,12 +279,19 @@ def phase_decision(pool, dev, m: int, rounds: int) -> None:
     t = rounds + 1
     ka = prng.split(st.key, 4)[:, 1]
     t_row = torch.full_like(st.t, float(t))
-    mask_g, z_g = fleet._tenant_act(st.stats, t_row, ka, cfg, with_z=True)
+
+    def act(stats, t_row, ka, cfg):
+        """`_tenant_act`'s mask, and z̃ from the same UCB/LCB."""
+        mu_bar = cb.reward_ucb(stats, t_row, cfg.delta, cfg.alpha_mu)
+        c_low = cb.cost_lcb(stats, t_row, cfg.delta, cfg.alpha_c)
+        z = relax.solve_batch(cfg.kind_ix, mu_bar, c_low, cfg.n, cfg.rho)
+        return fleet._tenant_act(stats, t_row, ka, cfg), z
+
+    mask_g, z_g = act(st.stats, t_row, ka, cfg)
     cpu = torch.device("cpu")
     cfg_c = fleet.FleetConfig(*(f.to(cpu) for f in cfg))
-    mask_c, z_c = fleet._tenant_act({k: v.to(cpu) for k, v in
-                                     st.stats.items()}, t_row.cpu(),
-                                    ka.cpu(), cfg_c, with_z=True)
+    mask_c, z_c = act({k: v.to(cpu) for k, v in st.stats.items()},
+                      t_row.cpu(), ka.cpu(), cfg_c)
     z_g, mask_g = z_g.cpu(), mask_g.cpu()
     dz = (z_g - z_c).abs().max(-1).values
     print(f"decision: {m} tenants after {rounds} rounds; max|z_card - z_cpu| "
@@ -285,6 +310,7 @@ def phase_decision(pool, dev, m: int, rounds: int) -> None:
         if min(mg, mc) > 1e-6:
             fail(f"row {r}: masks differ and no rounding draw lies within "
                  "1e-6 of its threshold")
+    return cfg, st
 
 
 def phase_fleet(pool, ops, dev, m: int, T: int):
@@ -323,8 +349,9 @@ def phase_fleet(pool, ops, dev, m: int, T: int):
     return launches
 
 
-def phase_profile(pool, dev, m: int, rounds: int) -> None:
-    """Where a fleet round's time goes (printed, not gated)."""
+def phase_profile(pool, dev, cfg, state, rounds: int) -> None:
+    """Where a fleet round's time goes (printed, not gated), from the
+    decision phase's fleet ``cfg`` and ``state``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -333,13 +360,11 @@ def phase_profile(pool, dev, m: int, rounds: int) -> None:
     from repro_torch.core import relax, rounding
     from repro_torch.env import cost_model, feedback
     from repro_torch.router import fleet
-    _, _, cfg = mixed_fleet(pool, m, 128, dev)
-    state = fleet.simulate_fleet(pool, cfg, T=16, seed=2, device=dev).state
     rows = relax.kind_rows(cfg.kind_ix)
     mu = torch.tensor(pool.mu, dtype=torch.float32, device=dev)
     mean_cost = torch.tensor(pool.mean_cost, dtype=torch.float32,
                              device=dev)
-    t_row = torch.full_like(state.t, 17.0)
+    t_row = state.t + 1.0
 
     def host_ms(fn, reps=5):
         fn()
@@ -433,11 +458,6 @@ def phase_quickstart(pool, ops, dev, T: int) -> None:
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile-rounds", type=int, default=0,
-                    help="trace this many fleet rounds (0: no profile)")
-    args = ap.parse_args()
-
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device; chip_smoke.py runs on a GPU only",
               file=sys.stderr)
@@ -455,12 +475,11 @@ def main() -> None:
     phase_build(ops)
     measured = phase_kernels(ops, topn, awc, dev)
     pool = paper_pool("sciq")
-    phase_decision(pool, dev, TENANTS, DECISION_ROUNDS)
+    cfg, state = phase_decision(pool, dev, TENANTS, DECISION_ROUNDS)
     launches = phase_fleet(pool, ops, dev, TENANTS, ROUNDS)
     if min(launches.values()) == 0:
         fail(f"a kernel of the main path never launched: {launches}")
-    if args.profile_rounds:
-        phase_profile(pool, dev, TENANTS, args.profile_rounds)
+    phase_profile(pool, dev, cfg, state, PROFILE_ROUNDS)
     phase_quickstart(pool, ops, dev, QUICKSTART_ROUNDS)
 
     kernels = []

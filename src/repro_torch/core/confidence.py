@@ -18,12 +18,14 @@ from typing import Dict
 import torch
 
 from repro_torch.core.rewards import log_f32
+from repro_torch.device import resolve_device
 
 
-def init_stats_batch(m: int, k: int, device="cpu"
+def init_stats_batch(m: int, k: int, device="cuda"
                      ) -> Dict[str, torch.Tensor]:
     """One row of Eq.-(6) statistics per tenant, distinct buffers."""
-    return {name: torch.zeros((m, k), dtype=torch.float32, device=device)
+    dev = resolve_device(device)
+    return {name: torch.zeros((m, k), dtype=torch.float32, device=dev)
             for name in ("mu_hat", "c_hat", "t_mu", "t_c")}
 
 

@@ -43,6 +43,7 @@ import torch
 from repro_torch.core import rewards as R
 from repro_torch.core.ranks import lagrangian_topn_mask
 from repro_torch.core.rewards import sum_in_order
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 
 FW_STEPS = 8           # continuous-greedy steps (the reference's default;
@@ -189,11 +190,13 @@ def _awc_fw(mu_bar, c_low, n, rho):
     return z
 
 
-def solve_relaxed(kind: str, mu_bar, c_low, n: int, rho: float):
-    """Fractional z̃ (K,) for one instance of the given reward model."""
-    mu_bar = torch.as_tensor(mu_bar, dtype=torch.float32)[None]
-    c_low = torch.as_tensor(c_low, dtype=torch.float32,
-                            device=mu_bar.device)[None]
+def solve_relaxed(kind: str, mu_bar, c_low, n: int, rho: float,
+                  device="cuda"):
+    """Fractional z̃ (K,) for one instance of the given reward model,
+    solved on ``device`` (the inputs are moved there)."""
+    dev = resolve_device(device)
+    mu_bar = torch.as_tensor(mu_bar, dtype=torch.float32).to(dev)[None]
+    c_low = torch.as_tensor(c_low, dtype=torch.float32).to(dev)[None]
     if kind == "suc":
         return lp_topn(mu_bar, c_low, n, rho, equality=True)[0]
     if kind == "aic":

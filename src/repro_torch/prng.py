@@ -29,6 +29,8 @@ from typing import Sequence, Union
 
 import torch
 
+from repro_torch.device import resolve_device
+
 MASK32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -52,12 +54,14 @@ def threefry2x32(k1, k2, x1, x2):
     return x0, x1
 
 
-def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
-    """`jax.random.PRNGKey` for a seed in int32 range -> (2,) int64."""
+def PRNGKey(seed: int, device="cuda") -> torch.Tensor:
+    """`jax.random.PRNGKey` for a seed in int32 range -> (2,) int64 on
+    ``device``."""
     seed = int(seed)
     if not -2 ** 31 <= seed < 2 ** 31:
         raise ValueError(f"seed {seed} is outside the int32 range")
-    return torch.tensor([0, seed & MASK32], dtype=torch.int64, device=device)
+    return torch.tensor([0, seed & MASK32], dtype=torch.int64,
+                        device=resolve_device(device))
 
 
 def _iota(shape: Sequence[int], device) -> torch.Tensor:

@@ -107,18 +107,17 @@ def init_tenant_state(m: int, k: int, keys: Optional[torch.Tensor] = None,
 
 
 # ================================================================= per-tenant
-def _tenant_act(stats, t, key, cfg: FleetConfig, rows=None,
-                with_z: bool = False):
+def _tenant_act(stats, t, key, cfg: FleetConfig, rows=None):
     """§4.1 + §4.2 for every row: UCB/LCB -> relaxed solve -> pairwise
     rounding -> base-matroid padding. stats (M, K), t (M,), key (M, 2)
-    -> action masks (M, K) (and z̃ when ``with_z``). ``rows`` may carry
-    `relax.kind_rows(cfg.kind_ix)` computed once."""
+    -> action masks (M, K). ``rows`` may carry `relax.kind_rows(cfg.kind_ix)`
+    computed once."""
     mu_bar = cb.reward_ucb(stats, t, cfg.delta, cfg.alpha_mu)
     c_low = cb.cost_lcb(stats, t, cfg.delta, cfg.alpha_c)
     z = relax.solve_batch(cfg.kind_ix, mu_bar, c_low, cfg.n, cfg.rho, rows)
     mask = rounding.pairwise_round_batch(z, key)
     mask = rounding.pad_to_n_dyn(mask, mu_bar, cfg.n, cfg.kind_ix != AWC_IX)
-    return (mask, z) if with_z else mask
+    return mask
 
 
 def _tenant_step(state: TenantState, t: int, mu, mean_cost, levels,

@@ -295,7 +295,7 @@ def test_pad_to_n_dyn_and_round_batch_bit_equal():
 def test_rounding_keeps_marginals():
     """E[1_S] = z̃ over many keys (the property the regret proof rests on)."""
     z = np.float32([0.3, 0.7, 0.5, 0.5, 1.0, 0.0, 0.25, 0.75, 0.0])
-    keys = prng.split(prng.PRNGKey(0), 4000)
+    keys = prng.split(prng.PRNGKey(0, "cpu"), 4000)
     masks = rounding.pairwise_round_batch(t(z).expand(4000, 9), keys).numpy()
     np.testing.assert_allclose(masks.mean(0), z, atol=0.03)
     assert np.allclose(masks.sum(1), z.sum())

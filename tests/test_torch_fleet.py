@@ -35,8 +35,8 @@ from repro.env.llm_profiles import default_rho, paper_pool as jpaper_pool
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.router import fleet as jfleet
-from repro_torch import convert
-from repro_torch.core import bandit, metrics
+from repro_torch import convert, prng
+from repro_torch.core import bandit, confidence, metrics, relax
 from repro_torch.core.policies import PolicyConfig
 from repro_torch.env.llm_profiles import paper_pool
 from repro_torch.router import fleet
@@ -250,6 +250,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         fleet.fleet_config([pc])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bandit.simulate("c2mabv", pool, pc, T=1, seeds=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        relax.solve_relaxed("suc", pool.mu, pool.mean_cost, 4, 0.5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prng.PRNGKey(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        confidence.init_stats_batch(2, pool.k)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fleet.init_tenant_state(2, pool.k)
 
 
 # ===================================================== import hygiene

@@ -27,14 +27,14 @@ def test_threefry_partitionable_is_the_configuration():
 @pytest.mark.parametrize("seed", SEEDS)
 def test_prngkey_bit_equal(seed):
     assert np.array_equal(np.asarray(jax.random.PRNGKey(seed)),
-                          as_np(prng.PRNGKey(seed)))
+                          as_np(prng.PRNGKey(seed, "cpu")))
 
 
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("num", [1, 4, 7])
 def test_split_bit_equal(seed, num):
     want = np.asarray(jax.random.split(jax.random.PRNGKey(seed), num))
-    got = as_np(prng.split(prng.PRNGKey(seed), num))
+    got = as_np(prng.split(prng.PRNGKey(seed, "cpu"), num))
     assert np.array_equal(want, got)
 
 
@@ -43,7 +43,7 @@ def test_split_bit_equal(seed, num):
 def test_fold_in_bit_equal(seed, data):
     want = np.asarray(jax.random.fold_in(jax.random.PRNGKey(seed),
                                          np.uint32(data)))
-    got = as_np(prng.fold_in(prng.PRNGKey(seed), data))
+    got = as_np(prng.fold_in(prng.PRNGKey(seed, "cpu"), data))
     assert np.array_equal(want, got)
 
 
@@ -52,7 +52,7 @@ def test_bits_bit_equal(shape):
     for seed in (0, 99):
         key = jax.random.PRNGKey(seed)
         want = np.asarray(jax.random.bits(key, shape, jnp.uint32))
-        got = as_np(prng.bits(prng.PRNGKey(seed), shape))
+        got = as_np(prng.bits(prng.PRNGKey(seed, "cpu"), shape))
         assert np.array_equal(want, got), (seed, shape)
 
 
@@ -69,8 +69,8 @@ def test_uniform_bit_equal(shape, bounds):
         key = jax.random.split(jax.random.PRNGKey(seed), 3)[2]
         want = np.asarray(jax.random.uniform(key, shape, minval=jlo,
                                              maxval=hi))
-        got = prng.uniform(prng.split(prng.PRNGKey(seed), 3)[2], shape,
-                           minval=lo, maxval=hi).numpy()
+        tkey = prng.split(prng.PRNGKey(seed, "cpu"), 3)[2]
+        got = prng.uniform(tkey, shape, minval=lo, maxval=hi).numpy()
         assert want.dtype == got.dtype == np.float32
         assert np.array_equal(want.view(np.uint32), got.view(np.uint32)), \
             (seed, shape, bounds)
@@ -80,7 +80,7 @@ def test_batched_key_rows_match_vmap():
     """(M, 2) key rows: split / uniform broadcast over the tenant axis as
     `jax.vmap` over per-row keys does (the fleet's usage)."""
     keys = jax.random.split(jax.random.PRNGKey(5), 6)
-    tkeys = prng.split(prng.PRNGKey(5), 6)
+    tkeys = prng.split(prng.PRNGKey(5, "cpu"), 6)
     want_split = np.asarray(jax.vmap(lambda k: jax.random.split(k, 4))(keys))
     assert np.array_equal(want_split, as_np(prng.split(tkeys, 4)))
     want_u = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (4, 9)))(
@@ -93,7 +93,7 @@ def test_batched_key_rows_match_vmap():
 def test_key_chain_stays_bit_equal():
     """A fleet-style chain — split(key, 4) per round, keep the first — stays
     bit-equal over many rounds."""
-    key, tkey = jax.random.PRNGKey(11), prng.PRNGKey(11)
+    key, tkey = jax.random.PRNGKey(11), prng.PRNGKey(11, "cpu")
     for _ in range(50):
         key = jax.random.split(key, 4)[0]
         tkey = prng.split(tkey, 4)[0]

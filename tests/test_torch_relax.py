@@ -140,7 +140,8 @@ def test_solve_relaxed_is_a_row_of_solve_batch(solved):
     (kind_ix, mu, c, n, rho, _), z_port, _, _ = solved
     for i in (0, 13, 30, 55, 70):
         z = relax.solve_relaxed(R.KINDS[kind_ix[i]], torch.tensor(mu[i]),
-                                torch.tensor(c[i]), int(n[i]), float(rho[i]))
+                                torch.tensor(c[i]), int(n[i]), float(rho[i]),
+                                device="cpu")
         assert np.array_equal(z.numpy(), z_port[i])
 
 

@@ -5,10 +5,12 @@
 Phases, each of which fails the run on any mismatch:
 
   1. card       the card's name and power limit (nvidia-smi)
-  2. build      both CUDA kernels, one nvcc per source, started together
+  2. build      all four CUDA kernels, one nvcc per source, started together
   3. kernels    each kernel against its plain PyTorch version on the card, at
-                the main path's shapes and at edge and tie cases; times with
-                CUDA events and the bound the card's rates allow
+                the main paths' shapes and at edge, tie and ragged cases;
+                times with CUDA events, the bound the card's rates allow,
+                and for the attention kernels the time of PyTorch's
+                `scaled_dot_product_attention` on the same inputs
   4. decision   a 4096-tenant mixed fleet runs 16 rounds on the card; from
                 its state one `_tenant_act` runs on the card (kernels) and
                 on the CPU (plain versions) with the same keys
@@ -21,6 +23,18 @@ Phases, each of which fails the run on any mismatch:
                 launched per round
   7. quickstart `bandit.simulate("c2mabv")` with examples/quickstart.py's
                 settings must reach its verdict, violation ≈ 0
+  8. serve      the serving path: StarCoder2-7B at full width (bf16 weights
+                from `init_params`, seed 0) behind `Engine`: `generate` on 4
+                prompts of 2,048 tokens, then the slot API (8 slots, two
+                admitted batches of 1,024 and 3,000 tokens, decode chunks of
+                16 and 48, release); every prefill must launch one
+                `flash_attention` per layer and every decode step one
+                `decode_attention` per layer. Then (printed, not gated) a
+                `torch.profiler` trace of one prefill and 3 decode steps
+  9. consistency  at full width, prefill + one decode step against
+                `forward` over the extended prompt
+ 10. card-cpu   the reduced StarCoder2 in float32 (TF32 off): the same
+                weights through `Engine.generate` on the card and on the CPU
 
 The next-to-last line of output is one JSON object describing every kernel;
 the last is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -40,13 +54,19 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+FLEET_KERNELS = ("topn_lp", "awc_fw")    # the fleet loop's kernels
 TENANTS = 4096                   # the fleet: thirds of AWC, SUC, AIC
 ROUNDS = 128                     # fleet rounds (phase 5)
 DECISION_ROUNDS = 16             # rounds before the decision check (phase 4)
 PROFILE_ROUNDS = 4               # rounds traced by the profiler (phase 6)
-QUICKSTART_ROUNDS = 2000         # examples/quickstart.py's T (phase 6)
+QUICKSTART_ROUNDS = 2000         # examples/quickstart.py's T (phase 7)
+SERVE_ARCH = "starcoder2-7b"     # the serving path's model (phase 8)
+SERVE_MAX_LEN = 4096
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
+# tests/test_kernels.py's ATOL: fp32 sums in another order; bf16 output
+ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 def fail(msg: str) -> None:
@@ -69,10 +89,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     """(least ms the card could take, what bounds it)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -80,6 +100,28 @@ def topn_cost(b: int, k: int):
     """Bytes (score, cost, n read once; out written once) and operations
     (a compare-and-count per arm pair, a mask multiply and an add per arm)."""
     return 4.0 * (2 * b * k + 2 * b), float(b * k * k + 2 * b * k)
+
+
+def flash_cost(q, k, causal: bool):
+    """Bytes (q, k, v read once, o written once) and operations: the two
+    products over the visible half of the S x T square when causal,
+    2·S²·hd·H·B, else over all of it."""
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    ops = 2.0 * s * t * hd * h * b * (1 if causal else 2)
+    return nbytes, ops
+
+
+def decode_cost(q, k, pos):
+    """Bytes (q once, K and V up to each row's pos once, o once) and
+    operations (two products over the visible slots), for this run's
+    positions."""
+    b, _, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    slots = float((torch.clamp(pos, max=t - 1) + 1).sum())
+    nbytes = q.element_size() * (2 * q.numel() + 2 * slots * kv * hd)
+    return nbytes, 4.0 * slots * hd * h
 
 
 def awc_cost(b: int, k: int, g: int):
@@ -323,7 +365,7 @@ def phase_fleet(pool, ops, dev, m: int, T: int):
     res = fleet.simulate_fleet(pool, cfg, T=T, seed=0, device=dev)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
+    launches = {k: ops.LAUNCHES[k] for k in FLEET_KERNELS}
     print(f"fleet: {m} tenants x {T} rounds in {secs:.2f} s: "
           f"{T / secs:.2f} rounds/s, {m * T / secs:.1f} tenant-rounds/s",
           flush=True)
@@ -352,9 +394,6 @@ def phase_fleet(pool, ops, dev, m: int, T: int):
 def phase_profile(pool, dev, cfg, state, rounds: int) -> None:
     """Where a fleet round's time goes (printed, not gated), from the
     decision phase's fleet ``cfg`` and ``state``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch import prng
     from repro_torch.core import confidence as cb
     from repro_torch.core import relax, rounding
@@ -410,24 +449,34 @@ def phase_profile(pool, dev, cfg, state, rounds: int) -> None:
     for name, fn in parts.items():
         print(f"profile: {name:32s} {host_ms(fn):8.3f} ms (host clock)",
               flush=True)
+    device_trace("profile", "round", rounds, lambda: fleet.simulate_fleet(
+        pool, cfg, T=rounds, state=state, device=dev))
+
+
+def device_trace(tag: str, unit: str, n: int, fn, top: int = 8) -> None:
+    """Run ``fn`` (n units of work) under `torch.profiler` and print the
+    wall time per unit (profiler on), the device's busy time and idle
+    share, the kernels per unit, and the ``top`` kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fleet.simulate_fleet(pool, cfg, T=rounds, state=state, device=dev)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
-    print(f"profile: {rounds} rounds traced: wall {wall_ms / rounds:.2f} "
-          f"ms/round (profiler on), device busy {busy_us / 1e3 / rounds:.3f} "
-          f"ms/round, idle share {1 - busy_us / 1e3 / wall_ms:.4f}, "
-          f"{launches / rounds:.0f} kernels/round", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"profile:   {e.count / rounds:7.0f}/round "
-              f"{e.self_device_time_total / 1e3 / rounds:8.3f} ms/round  "
+    print(f"{tag}: {unit} x {n} traced: wall {wall_ms / n:.2f} ms/{unit} "
+          f"(profiler on), device busy {busy_us / 1e3 / n:.3f} ms/{unit}, "
+          f"idle share {1 - busy_us / 1e3 / wall_ms:.4f}, "
+          f"{launches / n:.0f} kernels/{unit}", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"{tag}:   {e.count / n:7.0f}/{unit} "
+              f"{e.self_device_time_total / 1e3 / n:8.3f} ms/{unit}  "
               f"{e.key[:90]}", flush=True)
 
 
@@ -448,13 +497,304 @@ def phase_quickstart(pool, ops, dev, T: int) -> None:
                           float(rewards.ALPHA[kind]))
     print(f"quickstart: T={T} seeds=5 in {secs:.1f} s: reward/round "
           f"{s['reward_mean']:.4f} violation {s['violation_final']:.5f} "
-          f"ratio {s['ratio_final']:.1f} launches {dict(ops.LAUNCHES)}",
+          f"ratio {s['ratio_final']:.1f} launches "
+          f"{ {k: ops.LAUNCHES[k] for k in FLEET_KERNELS} }",
           flush=True)
-    if min(ops.LAUNCHES.values()) == 0:
+    if min(ops.LAUNCHES[k] for k in FLEET_KERNELS) == 0:
         fail("the quickstart ran without a kernel launch")
     if s["violation_final"] > 1e-3:
         fail(f"quickstart verdict not reached: violation "
              f"{s['violation_final']}")
+
+
+def phase_attention_kernels(ops, dev):
+    """flash_attention and decode_attention against their plain versions at
+    the serving path's shapes and at small, ragged and masked ones; returns
+    per-kernel measurements at the main shapes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    results = {}
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (label, B, S, H, KV, hd, causal, window, dtype); "main" is a prefill
+    # of 4 prompts of 2,048 tokens at StarCoder2-7B's heads
+    cases = [("main", 4, 2048, 36, 4, 128, True, None, bf16),
+             ("B1S128", 1, 128, 4, 4, 64, True, None, f32),
+             ("ragged", 2, 200, 9, 1, 128, True, None, f32),
+             ("ragged", 2, 200, 9, 1, 128, True, None, bf16),
+             ("win32", 1, 256, 4, 2, 64, True, 32, f32),
+             ("full", 1, 128, 2, 2, 64, False, None, f32),
+             ("fullwin", 2, 77, 8, 2, 128, False, 40, bf16),
+             ("S1025", 2, 1025, 36, 4, 128, True, None, bf16)]
+    worst, main = 0.0, None
+    for label, b, s, h, kv, hd, causal, window, dt in cases:
+        q = rnd((b, s, h, hd), dt)
+        k, v = rnd((b, s, kv, hd), dt), rnd((b, s, kv, hd), dt)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        worst = max(worst, err)
+        if not err <= ATTN_ATOL[dt]:
+            fail(f"flash_attention {label} {dt}: max|diff| {err}")
+        print(f"flash_attention {label:8s} B={b} S={s} H={h} KV={kv} "
+              f"hd={hd} causal={causal} window={window} {dt}: "
+              f"max|diff|={err:.3g}", flush=True)
+        if label == "main":
+            ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True))
+            plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
+                q, k, v, causal=True), iters=3, warmup=1)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+            b_ms, b_by = bound(*flash_cost(q, k, True), BF16_OPS_PER_S)
+            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=lib_ms)
+            print(f"flash_attention main: kernel={ms:.4f}ms "
+                  f"plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
+                  f"bound={b_ms:.5f}ms ({b_by})", flush=True)
+    results["flash_attention"] = dict(max_abs_err=worst, **main)
+
+    # (label, B, T, H, KV, hd, pos, dtype); "main" is a decode step of the
+    # slot phase: 8 slots of a 4,096-slot cache, 4 near 1,100, 4 near 3,040
+    main_pos = [1100, 1110, 1120, 1130, 3040, 3041, 3047, 3055]
+    cases = [("main", 8, 4096, 36, 4, 128, main_pos, bf16),
+             ("rows", 4, 128, 4, 2, 64, [0, 5, 63, 127], f32),
+             ("rows", 4, 128, 4, 2, 64, [0, 5, 63, 127], bf16),
+             ("scalar", 2, 256, 4, 2, 64, 100, f32),
+             ("ragged", 3, 77, 9, 1, 128, [76, 200, 3], f32),
+             ("mixed", 8, 4096, 36, 4, 128, [0, 1, 63, 64, 4095, 5000, 17,
+                                             2048], bf16)]
+    worst, main = 0.0, None
+    for label, b, t, h, kv, hd, pos, dt in cases:
+        q = rnd((b, 1, h, hd), dt)
+        k, v = rnd((b, t, kv, hd), dt), rnd((b, t, kv, hd), dt)
+        pos_t = (torch.tensor(pos, dtype=torch.int32, device=dev)
+                 if isinstance(pos, list) else pos)
+        out = ops.decode_attention(q, k, v, pos_t)
+        want = dec.decode_attention_plain(q, k, v, pos_t)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        worst = max(worst, err)
+        if not err <= ATTN_ATOL[dt]:
+            fail(f"decode_attention {label} {dt}: max|diff| {err}")
+        print(f"decode_attention {label:7s} B={b} T={t} H={h} KV={kv} "
+              f"hd={hd} pos={pos} {dt}: max|diff|={err:.3g}", flush=True)
+        if label == "main":
+            ms = cuda_ms(lambda: ops.decode_attention(q, k, v, pos_t),
+                         iters=100)
+            plain_ms = cuda_ms(lambda: dec.decode_attention_plain(
+                q, k, v, pos_t))
+            mask = (torch.arange(t, device=dev)[None, :] <= pos_t[:, None])
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask[:, None, None, :],
+                enable_gqa=True), iters=100)
+            b_ms, b_by = bound(*decode_cost(q, k, pos_t), BF16_OPS_PER_S)
+            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=lib_ms)
+            print(f"decode_attention main: kernel={ms:.4f}ms "
+                  f"plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
+                  f"bound={b_ms:.5f}ms ({b_by})", flush=True)
+    results["decode_attention"] = dict(max_abs_err=worst, **main)
+    return results
+
+
+def phase_serve(ops, dev):
+    """The serving path at full width; returns (launches, params, cfg)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    n = sum(x.numel() for x in [*params["embed"].values(),
+                                *params["lnf"].values()])
+    n += sum(x.numel() for layer in params["layers"]
+             for sub in layer.values() for x in sub.values())
+    print(f"serve: {cfg.name} {n:,} parameters (bf16, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB) initialised in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if n != M.param_count(cfg):
+        fail(f"{n} parameters, the schema counts {M.param_count(cfg)}")
+    eng = Engine(cfg, params, max_len=SERVE_MAX_LEN, temperature=0.7,
+                 dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(0)
+    layers = cfg.n_layers
+    # warm-up: cuBLAS handles and the kernels' first launches
+    eng.generate(rng.integers(0, cfg.vocab, (1, 64)), 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def expect(flash: int, decode: int, what: str) -> None:
+        got = (ops.LAUNCHES["flash_attention"],
+               ops.LAUNCHES["decode_attention"])
+        if got != (flash, decode):
+            fail(f"{what}: launches (flash, decode) {got}, expected "
+                 f"{(flash, decode)}")
+
+    def check_tokens(tokens, what: str) -> None:
+        if tokens.min() < 0 or tokens.max() >= cfg.vocab:
+            fail(f"{what}: a token outside the vocabulary")
+
+    def check_logits(lg, what: str) -> None:
+        if not torch.isfinite(lg).all():
+            fail(f"{what}: non-finite logits")
+
+    # ---- generate: 4 prompts of 2,048 tokens, 64 new tokens each
+    prompts = rng.integers(0, cfg.vocab, (4, 2048))
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, _ = eng.prefill(prompts)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    check_logits(lg, "generate prefill")
+    expect(layers, 0, "prefill")
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, 64)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    expect(2 * layers, 63 * layers, "generate (one prefill, 63 decode "
+           "steps)")
+    check_tokens(res.tokens, "generate")
+    if not np.isfinite(res.logprobs).all():
+        fail("generate: non-finite logprobs")
+    print(f"serve: generate 4 x 2048 prompt tokens, 64 new: {t_gen:.2f} s; "
+          f"prefill alone {t_pre * 1e3:.1f} ms = "
+          f"{4 * 2048 / t_pre:,.0f} prompt tokens/s; decode "
+          f"{(t_gen - t_pre) / 63 * 1e3:.2f} ms/step; mean logprob "
+          f"{res.logprobs.mean():.3f}", flush=True)
+
+    # ---- the slot API: 8 slots, two admitted batches
+    state = eng.init_slots(8, max_out=64)
+    flash, decode = ops.LAUNCHES["flash_attention"], \
+        ops.LAUNCHES["decode_attention"]
+    for slots, plen, chunk, seed in (([0, 1, 2, 3], 1024, 16, 1),
+                                     ([4, 5, 6, 7], 3000, 48, 2)):
+        p = rng.integers(0, cfg.vocab, (4, plen))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, sl = eng.prefill(p)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        flash += layers
+        expect(flash, decode, f"slot prefill {plen}")
+        check_logits(lg, f"slot prefill {plen}")
+        state = eng.admit(state, slots, lg, sl, prompt_len=plen, max_new=64,
+                          seed=seed)
+        del lg, sl
+        t0 = time.perf_counter()
+        state = eng.decode_chunk(state, chunk)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        decode += chunk * layers
+        expect(flash, decode, f"decode_chunk({chunk})")
+        check_logits(state.last, f"decode_chunk({chunk})")
+        print(f"serve: slots {slots}: prefill 4 x {plen} in "
+              f"{t_pre * 1e3:.1f} ms = {4 * plen / t_pre:,.0f} prompt "
+              f"tokens/s; decode_chunk({chunk}) over 8 slots "
+              f"{t_dec / chunk * 1e3:.2f} ms/step", flush=True)
+    out = state.out.cpu().numpy()
+    check_tokens(out, "slots")
+    n_out = state.n_out.cpu().tolist()
+    finished = state.finished.cpu().tolist()
+    for i, (got, done) in enumerate(zip(n_out, finished)):
+        budget = 64 if i < 4 else 48      # tokens the two chunks allow
+        if got > budget or (got < budget and not done):
+            fail(f"slot {i}: {got} tokens of {budget}, finished={done}")
+    state = eng.release(state, list(range(8)))
+    if state.active.any():
+        fail("release left a slot active")
+    launches = dict(ops.LAUNCHES)
+    print(f"serve: slots n_out {n_out}; launches {launches}; peak memory "
+          f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    # where the time goes (printed, not gated; after the launch counts):
+    # one 4 x 1,024 prefill, then 3 decode steps over the 8 slots' cache
+    p = rng.integers(0, cfg.vocab, (4, 1024))
+    device_trace("serve-profile", "prefill", 1, lambda: eng.prefill(p))
+    tok = torch.full((8, 1), eng.eos_id, dtype=torch.int64, device=dev)
+    device_trace("serve-profile", "decode step", 3, lambda: [
+        M.decode_step(cfg, params, tok, state.cache, state.pos, device=dev)
+        for _ in range(3)])
+    del state
+    return launches, params, cfg
+
+
+def phase_consistency(params, cfg, dev) -> None:
+    """Full width, bf16: prefill + one decode step (flash, then decode
+    kernel) against `forward` over the 1,025 tokens (flash over the whole
+    sequence). Both flows round their activations to bf16 at every matmul
+    and norm, in another order and at other shapes, through 32 layers."""
+    from repro_torch.models import model as M
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, (2, 1024))
+    last, cache = M.prefill(cfg, params, {"tokens": toks}, 2048, device=dev)
+    nxt = last.float().argmax(-1)[:, None]
+    lg, _ = M.decode_step(cfg, params, nxt, cache, 1024, device=dev)
+    del cache
+    ext = np.concatenate([toks, nxt.cpu().numpy()], axis=1)
+    full, _ = M.forward(cfg, params, {"tokens": ext}, device=dev)
+    full = full.float()
+    d_pre = (last.float() - full[:, -2]).abs().max().item()
+    d_dec = (lg[:, 0].float() - full[:, -1]).abs().max().item()
+    scale = full[:, -2:].abs().max().item()
+    agree = int((lg[:, 0].float().argmax(-1) == full[:, -1].argmax(-1))
+                .sum())
+    print(f"consistency: max|logit| {scale:.3f}; prefill vs forward "
+          f"max|diff| {d_pre:.4g}; decode step vs forward max|diff| "
+          f"{d_dec:.4g}; argmax agrees on {agree}/2 rows", flush=True)
+    # A fault in either kernel (a wrong mask, head or row) moves logits by
+    # about their own size. bf16 rounding does not: each flow rounds the
+    # residual stream and every product to 8 bits (2^-9 relative) ~200
+    # times over 32 layers, a random walk of a few percent of a logit, and
+    # the two flows share most of those roundings. So the gate is 1/8 of
+    # the largest logit.
+    tol = scale / 8
+    if not max(d_pre, d_dec) <= tol:
+        fail(f"prefill/decode differ from forward by more than {tol:.4g}")
+
+
+def phase_card_cpu(dev) -> None:
+    """Reduced StarCoder2, float32, TF32 off: the same weights through
+    `Engine.generate` on the card (kernels) and on the CPU (plain)."""
+    from repro_torch import convert
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+    cfg = get_config(SERVE_ARCH).reduced()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    card = convert.params_to(params, dev)
+    prompts = np.random.default_rng(2).integers(2, cfg.vocab, (3, 200))
+    last_c, cache_c = M.prefill(cfg, card, {"tokens": prompts}, 256,
+                                device=dev)
+    last, cache = M.prefill(cfg, params, {"tokens": prompts}, 256,
+                            device="cpu")
+    nxt = last.argmax(-1)[:, None]
+    step_c, _ = M.decode_step(cfg, card, nxt, cache_c, 200, device=dev)
+    step, _ = M.decode_step(cfg, params, nxt, cache, 200, device="cpu")
+    d_pre = (last_c.cpu() - last).abs().max().item()
+    d_dec = (step_c.cpu() - step).abs().max().item()
+    res_c = Engine(cfg, card, max_len=256, temperature=0.7,
+                   device=dev).generate(prompts, 32)
+    res = Engine(cfg, params, max_len=256, temperature=0.7,
+                 device="cpu").generate(prompts, 32)
+    agree = int((res_c.tokens == res.tokens).sum())
+    print(f"card-cpu: prefill logits max|diff| {d_pre:.3g}, first decode "
+          f"step {d_dec:.3g}; generate tokens equal {agree}/"
+          f"{res.tokens.size}", flush=True)
+    # float32 on both sides; sums in other orders over two layers move a
+    # logit of size ~1 by ~1e-6
+    if not max(d_pre, d_dec) <= 1e-4:
+        fail("card and CPU logits differ by more than 1e-4")
 
 
 def main() -> None:
@@ -474,6 +814,7 @@ def main() -> None:
     phase_card()
     phase_build(ops)
     measured = phase_kernels(ops, topn, awc, dev)
+    measured.update(phase_attention_kernels(ops, dev))
     pool = paper_pool("sciq")
     cfg, state = phase_decision(pool, dev, TENANTS, DECISION_ROUNDS)
     launches = phase_fleet(pool, ops, dev, TENANTS, ROUNDS)
@@ -481,14 +822,24 @@ def main() -> None:
         fail(f"a kernel of the main path never launched: {launches}")
     phase_profile(pool, dev, cfg, state, PROFILE_ROUNDS)
     phase_quickstart(pool, ops, dev, QUICKSTART_ROUNDS)
+    serve_launches, params, cfg = phase_serve(ops, dev)
+    for name in ("flash_attention", "decode_attention"):
+        if serve_launches[name] == 0:
+            fail(f"{name} never launched on the serving path")
+    launches.update({k: serve_launches[k] for k in ("flash_attention",
+                                                    "decode_attention")})
+    phase_consistency(params, cfg, dev)
+    del params
+    torch.cuda.empty_cache()
+    phase_card_cpu(dev)
 
     kernels = []
     for name, mod in ops.KERNELS.items():
         kernels.append({"name": name, "route": "cuda",
                         "source": str(mod.SOURCE.relative_to(ROOT)),
                         "replaces": mod.REPLACES,
-                        "launches": launches[name], **measured[name],
-                        "library_ms": None})
+                        "launches": launches[name],
+                        **{"library_ms": None, **measured[name]}})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,12 @@
-"""State across: the JAX package's fleet state and configs as port tensors.
+"""State across: the JAX package's fleet state, configs and model weights
+as port tensors.
 
-This system has per-tenant state and PRNG keys where a model has weights.
 These functions take the reference's `FleetConfig`, `TenantState` and
 `PolicyConfig` — any objects with those fields, read through
 `numpy.asarray`, so the port imports nothing of the reference — and return
 the port's tensors on a given device. uint32 key rows become int64 rows
 holding the same words (`repro_torch.prng`); `key_rows_to_numpy` turns them
-back.
+back. `params_from_jax` carries a model's parameter tree across.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.policies import PolicyConfig
+from repro_torch.models.model import check_family
 from repro_torch.device import resolve_device
 from repro_torch.router.fleet import FleetConfig, TenantState
 
@@ -64,3 +65,42 @@ def policy_config(pcfg) -> PolicyConfig:
                         rho=float(pcfg.rho), delta=float(pcfg.delta),
                         alpha_mu=float(pcfg.alpha_mu),
                         alpha_c=float(pcfg.alpha_c))
+
+
+def _tensor(x, dev) -> torch.Tensor:
+    """An array (numpy, or anything `numpy.asarray` reads) as a tensor of
+    the same dtype on ``dev``; bfloat16 arrays go across bit for bit."""
+    a = np.array(x)                  # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def params_from_jax(cfg, tree, device="cuda"):
+    """The JAX package's `models.model.init_params` tree (dicts of arrays,
+    layers stacked on a leading axis) -> the port's parameters on
+    ``device``: the same leaves, with ``layers`` unstacked into a list of
+    per-layer dicts."""
+    check_family(cfg)
+    dev = resolve_device(device)
+
+    def across(sub, index=None):
+        if isinstance(sub, dict):
+            return {k: across(v, index) for k, v in sub.items()}
+        return _tensor(sub if index is None else np.asarray(sub)[index], dev)
+
+    return {"embed": across(tree["embed"]),
+            "layers": [across(tree["layers"], i)
+                       for i in range(cfg.n_layers)],
+            "lnf": across(tree["lnf"])}
+
+
+def params_to(params, device):
+    """A copy of the port's parameters (nested dicts and lists of tensors)
+    on ``device``."""
+    dev = resolve_device(device)
+    if isinstance(params, dict):
+        return {k: params_to(v, dev) for k, v in params.items()}
+    if isinstance(params, list):
+        return [params_to(v, dev) for v in params]
+    return params.to(dev)

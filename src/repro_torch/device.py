@@ -13,6 +13,9 @@ def resolve_device(device="cuda") -> torch.device:
                            "is available; pass device='cpu' to run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}")
+    if dev.type == "cuda" and dev.index is None:
+        # the device tensors report, so comparisons with theirs hold
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -10,8 +10,9 @@ by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 (or when `build` is called), and loaded with ctypes. The library's file
 name carries a hash of its source, so an edited source is rebuilt.
 
-`LAUNCHES` counts, per kernel, the launches made through `topn_lp` and
-`awc_fw`; `reset_launches` sets them to 0.
+`LAUNCHES` counts, per kernel, the launches made through `topn_lp`,
+`awc_fw`, `flash_attention` and `decode_attention`; `reset_launches` sets
+them to 0.
 """
 from __future__ import annotations
 
@@ -27,9 +28,11 @@ from typing import Dict, Iterable, Optional
 import torch
 
 from repro_torch.kernels import awc_fw as _awc
+from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import topn_lp as _topn
 
-KERNELS = {m.NAME: m for m in (_topn, _awc)}
+KERNELS = {m.NAME: m for m in (_topn, _awc, _fa, _dec)}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -139,3 +142,30 @@ def awc_fw(z, mu, cost, lams, n):
     if costs.numel():                # an empty batch launches nothing
         LAUNCHES["awc_fw"] += 1
     return g, costs
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None):
+    """Prefill attention: q (B,S,H,hd), k/v (B,T,KV,hd) -> (B,S,H,hd)."""
+    if q.device.type == "cpu":
+        return _fa.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+    _cuda_ready(q, "flash_attention")
+    out = _fa.flash_attention_cuda(library("flash_attention"), q, k, v,
+                                   causal=causal, window=window)
+    if out.numel():                  # an empty batch launches nothing
+        LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def decode_attention(q, k, v, pos):
+    """One-token attention against a cache: q (B,1,H,hd), k/v (B,T,KV,hd),
+    pos scalar or (B,) -> (B,1,H,hd)."""
+    if q.device.type == "cpu":
+        return _dec.decode_attention_plain(q, k, v, pos)
+    _cuda_ready(q, "decode_attention")
+    out = _dec.decode_attention_cuda(library("decode_attention"), q, k, v,
+                                     pos)
+    if out.numel():                  # an empty batch launches nothing
+        LAUNCHES["decode_attention"] += 1
+    return out

@@ -1,0 +1,203 @@
+"""Attention: GQA / MHA / sliding-window; full sequence, prefill and decode
+(port of `repro/models/attention.py`).
+
+Parameters are plain dicts of tensors with the JAX leaf names (`wq`, `wk`,
+`wv`, `wo`, and `bq`/`bk`/`bv` with a qkv bias). `attend` picks an
+implementation (``impl``):
+
+  auto, pallas — on a CUDA tensor the hand-written `flash_attention`
+                 kernel (`kernels.ops`); on a CPU tensor `_attend_naive`.
+                 "pallas" keeps the JAX name so a reader finds the
+                 counterpart; the kernel takes no q_offset and raises on
+                 one.
+  naive        — one einsum over the full (S, T) score matrix.
+
+The JAX package's XLA "flash" (`_attend_chunked`, `_online_block` and its
+banded sliding-window variant) waits (ROADMAP.md, A26).
+
+Decode writes the new token's K/V into the cache in place (JAX donates the
+cache buffer and scatters; the port updates the tensor it is given). Without
+a window, decode attends through `kernels.ops.decode_attention`; with a
+window (the ring-buffer mask) it keeps the plain einsum, which no
+configuration of the serving path takes (ROADMAP.md, B4 and A22).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import repeat_kv as _repeat_kv
+from repro_torch.models import rope as rope_mod
+from repro_torch.models.layers import ParamSpec, einsum
+
+NEG_INF = -1e30
+
+
+# ------------------------------------------------------------------ schema
+def attention_schema(cfg, d_model: Optional[int] = None):
+    d = d_model or cfg.d_model
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    std = 0.02
+    std_o = 0.02 / math.sqrt(2 * max(cfg.n_layers, 1))
+    s = {
+        "wq": ParamSpec((d, h, hd), ("embed_fsdp", "heads", None), std=std),
+        "wk": ParamSpec((d, kv, hd), ("embed_fsdp", "kv_heads", None), std=std),
+        "wv": ParamSpec((d, kv, hd), ("embed_fsdp", "kv_heads", None), std=std),
+        "wo": ParamSpec((h, hd, d), ("heads", None, "embed_fsdp"), std=std_o),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = ParamSpec((h, hd), ("heads", None), "zeros")
+        s["bk"] = ParamSpec((kv, hd), ("kv_heads", None), "zeros")
+        s["bv"] = ParamSpec((kv, hd), ("kv_heads", None), "zeros")
+    return s
+
+
+def _qkv(cfg, p, x):
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    k = einsum("btd,dhk->bthk", x, p["wk"])
+    v = einsum("btd,dhk->bthk", x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return q, k, v
+
+
+# ------------------------------------------------------------------ naive
+def _attend_naive(q, k, v, *, causal: bool, window: Optional[int],
+                  q_offset: int = 0):
+    """q (B,S,H,hd), k/v (B,T,KV,hd) -> (B,S,H,hd)."""
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    k = _repeat_kv(k, h // k.shape[2])
+    v = _repeat_kv(v, h // v.shape[2])
+    scores = einsum("bshk,bthk->bhst", q, k).float()
+    scores = scores / math.sqrt(hd)
+    qpos = torch.arange(s, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return einsum("bhst,bthk->bshk", w, v)
+
+
+# ------------------------------------------------------------------ dispatch
+def attend(q, k, v, *, causal=True, window=None, q_offset=0, impl="auto"):
+    if impl in ("auto", "pallas"):
+        if q.device.type == "cpu":
+            return _attend_naive(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+        if q_offset:
+            raise ValueError("the flash_attention kernel takes no q_offset "
+                             f"(got {q_offset}); use impl='naive'")
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
+    if impl == "naive":
+        return _attend_naive(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+    if impl == "chunked":
+        raise NotImplementedError("the XLA-style chunked attention waits "
+                                  "(ROADMAP.md, A26)")
+    raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def apply_attention(cfg, p, x, positions, *, causal=True, window="cfg",
+                    impl="auto"):
+    """Full-sequence self-attention (train / prefill)."""
+    if window == "cfg":
+        window = cfg.sliding_window
+    q, k, v = _qkv(cfg, p, x)
+    if cfg.rope != "none":
+        rot = rope_mod.positional(cfg, positions)
+        q, k = rot(q), rot(k)
+    o = attend(q, k, v, causal=causal, window=window, impl=impl)
+    return einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+# ------------------------------------------------------------------ prefill
+def apply_attention_prefill(cfg, p, x, positions, cache, *, causal=True,
+                            window="cfg", impl="auto"):
+    """Full-sequence attention that also fills the decode KV cache.
+
+    Same math as `apply_attention`, but the (rope'd) K/V are written into
+    ``cache`` — a zeroed {"k", "v"} of shape (B, T, KV, hd), one layer's
+    view of the model's stacked cache, filled in place (JAX returns a new
+    one) — at slot = position % T, the layout `apply_attention_decode`
+    writes token by token. For ring caches (sliding window) only the last T
+    prompt tokens are kept. Returns (out (B,S,D), cache)."""
+    if window == "cfg":
+        window = cfg.sliding_window
+    q, k, v = _qkv(cfg, p, x)
+    if cfg.rope != "none":
+        rot = rope_mod.positional(cfg, positions)
+        q, k = rot(q), rot(k)
+    o = attend(q, k, v, causal=causal, window=window, impl=impl)
+    out = einsum("bshk,hkd->bsd", o, p["wo"])
+
+    b, s = k.shape[:2]
+    t = cache["k"].shape[1]
+    keep = min(s, t)
+    rows = torch.arange(b, device=k.device)[:, None]
+    slots = (positions[:, s - keep:] % t).long()          # (B, keep)
+    cache["k"][rows, slots] = k[:, s - keep:].to(cache["k"].dtype)
+    cache["v"][rows, slots] = v[:, s - keep:].to(cache["v"].dtype)
+    return out, cache
+
+
+# ------------------------------------------------------------------ decode
+def apply_attention_decode(cfg, p, x, cache, pos, *, window="cfg"):
+    """One-token self-attention decode. x (B,1,D); cache k/v (B,T,KV,hd),
+    updated in place; pos a scalar (every row at one position) or (B,) int
+    (each cache row at its own position, the slot-indexed serving layout).
+
+    Sliding-window configs keep a ring-buffer cache of size == window and
+    the plain einsum below; the kernel has no ring mask (ROADMAP.md, B4).
+    Cross-attention decode waits for the audio family (A25).
+    """
+    if window == "cfg":
+        window = cfg.sliding_window
+    b = x.shape[0]
+    pos_r = torch.as_tensor(pos, device=x.device).to(torch.int32).expand(b)
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    k1 = einsum("bsd,dhk->bshk", x, p["wk"])
+    v1 = einsum("bsd,dhk->bshk", x, p["wv"])
+    if "bk" in p:
+        k1, v1 = k1 + p["bk"], v1 + p["bv"]
+    if cfg.rope != "none":
+        rot = rope_mod.positional(cfg, pos_r[:, None])
+        q, k1 = rot(q), rot(k1)
+    t = cache["k"].shape[1]
+    # a frozen row past the cache end writes its last slot, as JAX's
+    # dynamic_update_slice clamps
+    slot = (pos_r % t if window is not None else pos_r).clamp(max=t - 1)
+    rows = torch.arange(b, device=x.device)
+    cache["k"][rows, slot.long()] = k1[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, slot.long()] = v1[:, 0].to(cache["v"].dtype)
+    k, v = cache["k"], cache["v"]
+    if window is None:
+        dt = torch.promote_types(q.dtype, k.dtype)
+        o = ops.decode_attention(q.to(dt), k.to(dt), v.to(dt), pos_r)
+        return einsum("bshk,hkd->bsd", o, p["wo"]), cache
+    t, kvh, hd = k.shape[1:]
+    h = q.shape[2]
+    k = _repeat_kv(k, h // kvh)
+    v = _repeat_kv(v, h // kvh)
+    sc = einsum("bshk,bthk->bhst", q, k).float()
+    sc = sc / math.sqrt(hd)
+    kidx = torch.arange(t, device=x.device)[None, :]
+    # ring buffer: valid slots are those written in the last `window`
+    # steps: slot index distance from current pos (per row)
+    age = (pos_r[:, None] % t - kidx) % t
+    valid = age < torch.clamp(pos_r[:, None] + 1, max=t)
+    sc = torch.where(valid[:, None, None, :], sc, torch.full_like(sc, NEG_INF))
+    w = torch.softmax(sc, dim=-1).to(q.dtype)
+    o = einsum("bhst,bthk->bshk", w, v)
+    return einsum("bshk,hkd->bsd", o, p["wo"]), cache

@@ -12,6 +12,9 @@ Matches jax 0.9 with ``jax_threefry_partitionable=True``:
   bits(k, shape)  y1 ^ y2 of threefry(k, iota_2x32(shape))
   uniform         (bits >> 9 | 0x3F800000) as f32, minus 1, scaled,
                   then max(minval, .)
+  gumbel          -log(-log(uniform(minval=tiny, maxval=1))), jax's
+                  default mode="low"
+  categorical     argmax(logits + gumbel) along the last axis
 
 XLA contracts uniform's f·(max − min) + min into a fused multiply-add. The
 port forms it in float64 (the product is exact there) and rounds once to
@@ -20,7 +23,14 @@ a float32 rounding midpoint. For the bounds the system uses, [0, 1) and
 [tiny, 1), every form is exact.
 
 Leading axes of a key batch broadcast: a (M, 2) key tensor gives (M, n, 2)
-keys from `split` and (M, *shape) draws from `uniform`.
+keys from `split` and (M, *shape) draws from `uniform`, as `jax.vmap` over
+the key rows would.
+
+`gumbel` evaluates both logs in float64 and rounds once to float32, so the
+card and the CPU draw the same noise. XLA's float32 log is not correctly
+rounded (an ulp off on ~14% of inputs on the CPU), so the draws agree with
+`jax.random.gumbel` to about an ulp, not bit for bit; an argmax over them
+(`categorical`) agrees exactly unless two candidates lie within that.
 """
 from __future__ import annotations
 
@@ -90,11 +100,16 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([y1, y2], dim=-1)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """(..., 2) -> (..., 2)."""
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """(..., 2) -> (..., 2). ``data`` is an int or an integer tensor that
+    broadcasts against the key's leading axes (one datum per key row)."""
     k1, k2 = key[..., 0], key[..., 1]
-    y1, y2 = threefry2x32(k1, k2, torch.zeros_like(k1),
-                          torch.full_like(k1, int(data) & MASK32))
+    if isinstance(data, torch.Tensor):
+        d = (data.to(device=key.device, dtype=torch.int64) & MASK32)
+        d = d.expand_as(k1)
+    else:
+        d = torch.full_like(k1, int(data) & MASK32)
+    y1, y2 = threefry2x32(k1, k2, torch.zeros_like(k1), d)
     return torch.stack([y1, y2], dim=-1)
 
 
@@ -114,3 +129,22 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (),
     hi = torch.as_tensor(maxval, dtype=torch.float32, device=key.device)
     scaled = f.double() * (hi - lo).double() + lo.double()
     return torch.maximum(lo, scaled.to(torch.float32))
+
+
+TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+    """float32 standard Gumbel draws: (..., 2) -> (..., *shape)."""
+    u = uniform(key, shape, minval=TINY, maxval=1.0).double()
+    return (-torch.log(-torch.log(u))).to(torch.float32)
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """One draw per row of float32 ``logits`` (..., V), keys (..., 2) ->
+    (...) int64: `jax.random.categorical` along the last axis."""
+    if logits.dtype != torch.float32:
+        raise TypeError(f"categorical takes float32 logits, got "
+                        f"{logits.dtype}")
+    g = gumbel(key, logits.shape[-1:])
+    return torch.argmax(g + logits, dim=-1)

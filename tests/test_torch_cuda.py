@@ -6,12 +6,19 @@ runs on the GPU machine as it is:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
+from repro_torch import convert
+from repro_torch.configs.base import get_config
 from repro_torch.kernels import awc_fw as awc
+from repro_torch.kernels import decode_attention as dec
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import topn_lp as topn
+from repro_torch.models import model as M
+from repro_torch.serving.engine import Engine
 
 pytestmark = pytest.mark.cuda
 
@@ -72,3 +79,82 @@ def test_kernels_reject_what_they_do_not_take(dev):
         ops.topn_lp(x, x, n.long())
     with pytest.raises(ValueError):
         ops.awc_fw(x, x, x, x[:, :3], n[:2])
+    q = torch.zeros((1, 8, 4, 64), device=dev)
+    kv = torch.zeros((1, 8, 2, 64), device=dev)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, kv.bfloat16(), kv)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.transpose(1, 2), kv, kv)
+    with pytest.raises(ValueError):
+        ops.decode_attention(q, kv, kv, 3)          # 8 query tokens
+    with pytest.raises(ValueError):
+        ops.decode_attention(q[:, :1, :, :32].contiguous(),
+                             kv[..., :32].contiguous(),
+                             kv[..., :32].contiguous(), 3)
+
+
+# ATOL of `tests/test_kernels.py`: fp32 sums in another order; bf16 output
+ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _attn_inputs(shapes, dtype, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(s, generator=g).to(dev, dtype) for s in shapes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,hd,causal,window", [
+    (1, 128, 4, 4, 64, True, None), (2, 200, 9, 1, 128, True, None),
+    (1, 256, 4, 2, 64, True, 32), (1, 128, 2, 2, 64, False, None),
+    (2, 77, 8, 2, 128, False, 40), (4, 2048, 36, 4, 128, True, None)])
+def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, h, kv, hd,
+                                              causal, window):
+    q, k, v = _attn_inputs([(b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)],
+                           dtype, s + h, dev)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert out.dtype == dtype
+    assert (out.float() - want.float()).abs().max().item() <= \
+        ATTN_ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,h,kv,hd,pos", [
+    (4, 128, 4, 2, 64, [0, 5, 63, 127]), (2, 256, 4, 2, 64, 100),
+    (3, 77, 9, 1, 128, [76, 200, 3]),
+    (8, 4096, 36, 4, 128, [1100, 1110, 1120, 1130, 3040, 3041, 3047, 0])])
+def test_decode_attention_kernel_matches_plain(dev, dtype, b, t, h, kv, hd,
+                                               pos):
+    q, k, v = _attn_inputs([(b, 1, h, hd), (b, t, kv, hd), (b, t, kv, hd)],
+                           dtype, t + h, dev)
+    if isinstance(pos, list):
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    before = ops.LAUNCHES["decode_attention"]
+    out = ops.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == before + 1
+    want = dec.decode_attention_plain(q, k, v, pos)
+    assert (out.float() - want.float()).abs().max().item() <= \
+        ATTN_ATOL[dtype]
+
+
+def test_serving_path_runs_the_attention_kernels(dev):
+    """The reduced StarCoder2 in float32: `generate` launches one flash
+    kernel per layer for its prefill and one decode kernel per layer per
+    decode step, and its first tokens' logits match the CPU's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("starcoder2-7b").reduced()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    card = convert.params_to(params, dev)
+    prompts = np.random.default_rng(0).integers(2, cfg.vocab, (3, 40))
+    ops.reset_launches()
+    Engine(cfg, card, max_len=64, device=dev).generate(prompts, 6)
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert ops.LAUNCHES["decode_attention"] == cfg.n_layers * 5
+    last_c, _ = M.prefill(cfg, card, {"tokens": prompts}, 64, device=dev)
+    last, _ = M.prefill(cfg, params, {"tokens": prompts}, 64, device="cpu")
+    assert (last_c.cpu() - last).abs().max().item() <= 1e-4

@@ -40,6 +40,9 @@ from repro_torch.core import bandit, confidence, metrics, relax
 from repro_torch.core.policies import PolicyConfig
 from repro_torch.env.llm_profiles import paper_pool
 from repro_torch.router import fleet
+from repro_torch.configs.base import get_config
+from repro_torch.models import model as model_mod
+from repro_torch.serving.engine import Engine
 
 torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -258,6 +261,24 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         confidence.init_stats_batch(2, pool.k)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fleet.init_tenant_state(2, pool.k)
+    cfg = get_config("starcoder2-7b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_mod.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_mod.init_decode_caches(cfg, 1, 8)
+    params = model_mod.init_params(cfg, device="cpu")
+    toks = np.zeros((1, 4), np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_mod.forward(cfg, params, {"tokens": toks})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_mod.prefill(cfg, params, {"tokens": toks}, 8)
+    cache = model_mod.init_decode_caches(cfg, 1, 8, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_mod.decode_step(cfg, params, toks[:, :1], cache, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cfg, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.params_from_jax(cfg, {"embed": {}, "layers": {}, "lnf": {}})
 
 
 # ===================================================== import hygiene
@@ -286,7 +307,10 @@ def test_port_loads_no_jax_and_no_reference_module():
     code = ("import sys\n"
             "import repro_torch, repro_torch.router.fleet, "
             "repro_torch.core.bandit, repro_torch.convert, "
-            "repro_torch.kernels.ops\n"
+            "repro_torch.kernels.ops, repro_torch.serving.engine, "
+            "repro_torch.models.model, repro_torch.configs.base\n"
+            "from repro_torch.configs.base import list_archs\n"
+            "list_archs()\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

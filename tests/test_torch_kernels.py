@@ -19,6 +19,8 @@ from repro.core import ranks as jranks
 from repro.kernels import ref
 from repro_torch.core import ranks
 from repro_torch.kernels import awc_fw as awc
+from repro_torch.kernels import decode_attention as dec
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import topn_lp as topn
 
@@ -143,12 +145,18 @@ def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
         raise AssertionError("plain version called for a CUDA tensor")
     monkeypatch.setattr(topn, "topn_lp_plain", boom)
     monkeypatch.setattr(awc, "awc_fw_plain", boom)
+    monkeypatch.setattr(fa, "flash_attention_plain", boom)
+    monkeypatch.setattr(dec, "decode_attention_plain", boom)
     x = _ClaimsCuda()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ops.topn_lp(x, x, x)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ops.awc_fw(x, x, x, x, x)
-    assert ops.LAUNCHES == {"topn_lp": 0, "awc_fw": 0}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.flash_attention(x, x, x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.decode_attention(x, x, x, 0)
+    assert ops.LAUNCHES == {name: 0 for name in ops.KERNELS}
 
 
 def test_other_devices_raise():

@@ -5,12 +5,13 @@
 Phases, each of which fails the run on any mismatch:
 
   1. card       the card's name and power limit (nvidia-smi)
-  2. build      all four CUDA kernels, one nvcc per source, started together
+  2. build      all five CUDA kernels, one nvcc per source, started together
   3. kernels    each kernel against its plain PyTorch version on the card, at
-                the main paths' shapes and at edge, tie and ragged cases;
-                times with CUDA events, the bound the card's rates allow,
-                and for the attention kernels the time of PyTorch's
-                `scaled_dot_product_attention` on the same inputs
+                the main paths' shapes and at edge, tie, ragged and (for
+                ssd_chunk) steep-decay cases; times with CUDA events, the
+                bound the card's rates allow, and for the attention kernels
+                the time of PyTorch's `scaled_dot_product_attention` on the
+                same inputs
   4. decision   a 4096-tenant mixed fleet runs 16 rounds on the card; from
                 its state one `_tenant_act` runs on the card (kernels) and
                 on the CPU (plain versions) with the same keys
@@ -29,12 +30,22 @@ Phases, each of which fails the run on any mismatch:
                 admitted batches of 1,024 and 3,000 tokens, decode chunks of
                 16 and 48, release); every prefill must launch one
                 `flash_attention` per layer and every decode step one
-                `decode_attention` per layer. Then (printed, not gated) a
-                `torch.profiler` trace of one prefill and 3 decode steps
+                `decode_attention` per layer, and nothing else. Then
+                (printed, not gated) a `torch.profiler` trace of one
+                prefill and 3 decode steps
   9. consistency  at full width, prefill + one decode step against
                 `forward` over the extended prompt
  10. card-cpu   the reduced StarCoder2 in float32 (TF32 off): the same
-                weights through `Engine.generate` on the card and on the CPU
+                weights through prefill, a decode step and
+                `Engine.generate` on the card and on the CPU
+ 11. serve-ssm  the same serving path for Mamba2-780M at full width (bf16,
+                `generate` on 4 prompts of 2,048 tokens, the slot API with
+                batches of 1,024 and 3,072 tokens): every prefill must launch
+                one `ssd_chunk` per layer and a decode step no kernel; then
+                the profiler trace of one prefill and 3 decode steps
+ 12. ssm-consistency  at full width, prefill of 1,024 tokens and 256
+                teacher-forced decode steps against `forward` over all 1,280
+ 13. ssm-card-cpu  phase 10 for the reduced Mamba2
 
 The next-to-last line of output is one JSON object describing every kernel;
 the last is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -61,12 +72,24 @@ DECISION_ROUNDS = 16             # rounds before the decision check (phase 4)
 PROFILE_ROUNDS = 4               # rounds traced by the profiler (phase 6)
 QUICKSTART_ROUNDS = 2000         # examples/quickstart.py's T (phase 7)
 SERVE_ARCH = "starcoder2-7b"     # the serving path's model (phase 8)
+SSM_ARCH = "mamba2-780m"         # the SSM serving path's model (phase 11)
 SERVE_MAX_LEN = 4096
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 # tests/test_kernels.py's ATOL: fp32 sums in another order; bf16 output
 ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# ssd_chunk: fp32 products in another order than the plain version's
+# einsums, over up to 256 + 128 terms; held to 1e-4 of the largest value
+SSD_RTOL = 1e-4
+# ssd_chunk's cases (label, B, NC, L, H, P, N, B/C dtype, acum slope or 0
+# for the model's decay); "main" is the SSM prefill of 4 prompts of 2,048
+# tokens at Mamba2-780M's width
+SSD_CASES = [("main", 4, 8, 256, 48, 64, 128, torch.bfloat16, 0.0),
+             ("L100", 1, 1, 100, 48, 64, 128, torch.bfloat16, 0.0),
+             ("B1", 1, 8, 256, 48, 64, 128, torch.bfloat16, 0.0),
+             ("steep", 2, 2, 256, 48, 64, 128, torch.bfloat16, 30.0),
+             ("reduced", 3, 2, 32, 16, 32, 16, torch.float32, 0.0)]
 
 
 def fail(msg: str) -> None:
@@ -122,6 +145,18 @@ def decode_cost(q, k, pos):
     slots = float((torch.clamp(pos, max=t - 1) + 1).sum())
     nbytes = q.element_size() * (2 * q.numel() + 2 * slots * kv * hd)
     return nbytes, 4.0 * slots * hd * h
+
+
+def ssd_cost(xd, bm):
+    """Bytes (xd, acum, bm, cm read once; y and the states written once)
+    and operations (C Bᵀ once per chunk and the two L×L products over their
+    causal half, and the state product: B·NC·(L²·N + L²·P·H + 2·L·N·P·H))."""
+    b, nc, l, h, p = xd.shape
+    n = bm.shape[-1]
+    nbytes = (4.0 * (2 * xd.numel() + b * nc * l * h + b * nc * h * p * n)
+              + 2 * bm.element_size() * b * nc * l * n)
+    ops = float(b * nc) * (l * l * n + l * l * p * h + 2 * l * n * p * h)
+    return nbytes, ops
 
 
 def awc_cost(b: int, k: int, g: int):
@@ -606,12 +641,79 @@ def phase_attention_kernels(ops, dev):
     return results
 
 
-def phase_serve(ops, dev):
-    """The serving path at full width; returns (launches, params, cfg)."""
+def phase_ssd_kernel(ops, dev):
+    """ssd_chunk against its plain version at the SSM prefill's shape and
+    at ragged, single-row, steep-decay and reduced ones; returns its
+    measurements at the main shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ssd_scan as ssd
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def inputs(b, nc, l, h, p, n, bc_dtype, slope):
+        """As `ssd_chunked` forms them: xd = x·dt, acum the cumulative sum
+        of dt·a (dt a softplus, a = -exp(·) per head, or -slope·U(0, 1)
+        when ``slope`` is set), bm/cm views into one wider conv output."""
+        x = torch.randn((b, nc, l, h, p), generator=gen, device=dev)
+        dt = F.softplus(torch.randn((b, nc, l, h), generator=gen,
+                                    device=dev))
+        if slope:
+            da = -slope * torch.rand((b, nc, l, h), generator=gen,
+                                     device=dev)
+        else:
+            a = -torch.exp(0.5 * torch.randn((h,), generator=gen,
+                                             device=dev))
+            da = dt * a
+        wide = torch.randn((b, nc * l, 2 * n + 64), generator=gen,
+                           device=dev).to(bc_dtype)
+        return ((x * dt[..., None]).contiguous(), torch.cumsum(da, dim=2),
+                wide[..., 64:64 + n].reshape(b, nc, l, n),
+                wide[..., 64 + n:].reshape(b, nc, l, n))
+
+    worst, main = 0.0, None
+    for label, b, nc, l, h, p, n, bc_dtype, slope in SSD_CASES:
+        args = inputs(b, nc, l, h, p, n, bc_dtype, slope)
+        y, st = ops.ssd_chunk(*args)
+        wy, wst = ssd.ssd_chunk_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(y).all() and torch.isfinite(st).all()):
+            fail(f"ssd_chunk {label}: non-finite output")
+        rel = max((y - wy).abs().max().item() / wy.abs().max().item(),
+                  (st - wst).abs().max().item() / wst.abs().max().item())
+        err = max((y - wy).abs().max().item(), (st - wst).abs().max().item())
+        worst = max(worst, err)
+        print(f"ssd_chunk {label:7s} B={b} NC={nc} L={l} H={h} P={p} N={n} "
+              f"B/C {bc_dtype}: max|diff| {err:.3g}, relative {rel:.3g}",
+              flush=True)
+        if not rel <= SSD_RTOL:
+            fail(f"ssd_chunk {label}: relative max|diff| {rel:.3g} > "
+                 f"{SSD_RTOL}")
+        if label == "main":
+            ms = cuda_ms(lambda: ops.ssd_chunk(*args))
+            plain_ms = cuda_ms(lambda: ssd.ssd_chunk_plain(*args), iters=5)
+            b_ms, b_by = bound(*ssd_cost(args[0], args[2]))
+            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+            print(f"ssd_chunk main: kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+                  f"bound={b_ms:.5f}ms ({b_by}); no single PyTorch call "
+                  "computes it", flush=True)
+    return {"ssd_chunk": dict(max_abs_err=worst, **main)}
+
+
+def serve_kernels(cfg):
+    """The kernels one prefill and one decode step of ``cfg`` launch, per
+    kernel (every other kernel must stay at 0)."""
+    layers = cfg.n_layers
+    if cfg.family == "ssm":
+        return {"ssd_chunk": layers}, {}
+    return {"flash_attention": layers}, {"decode_attention": layers}
+
+
+def phase_serve(ops, dev, arch: str, long_len: int, tag: str):
+    """A serving path at full width; returns (launches, params, cfg)."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Engine
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
@@ -619,7 +721,7 @@ def phase_serve(ops, dev):
                                 *params["lnf"].values()])
     n += sum(x.numel() for layer in params["layers"]
              for sub in layer.values() for x in sub.values())
-    print(f"serve: {cfg.name} {n:,} parameters (bf16, "
+    print(f"{tag}: {cfg.name} {n:,} parameters (bf16, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB) initialised in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if n != M.param_count(cfg):
@@ -627,18 +729,17 @@ def phase_serve(ops, dev):
     eng = Engine(cfg, params, max_len=SERVE_MAX_LEN, temperature=0.7,
                  dtype=torch.bfloat16, device=dev)
     rng = np.random.default_rng(0)
-    layers = cfg.n_layers
+    per_prefill, per_step = serve_kernels(cfg)
     # warm-up: cuBLAS handles and the kernels' first launches
     eng.generate(rng.integers(0, cfg.vocab, (1, 64)), 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    def expect(flash: int, decode: int, what: str) -> None:
-        got = (ops.LAUNCHES["flash_attention"],
-               ops.LAUNCHES["decode_attention"])
-        if got != (flash, decode):
-            fail(f"{what}: launches (flash, decode) {got}, expected "
-                 f"{(flash, decode)}")
+    def expect(prefills: int, steps: int, what: str) -> None:
+        want = {k: prefills * per_prefill.get(k, 0) + steps * per_step.get(k, 0)
+                for k in ops.KERNELS}
+        if dict(ops.LAUNCHES) != want:
+            fail(f"{what}: launches {dict(ops.LAUNCHES)}, expected {want}")
 
     def check_tokens(tokens, what: str) -> None:
         if tokens.min() < 0 or tokens.max() >= cfg.vocab:
@@ -657,17 +758,16 @@ def phase_serve(ops, dev):
     torch.cuda.synchronize()
     t_pre = time.perf_counter() - t0
     check_logits(lg, "generate prefill")
-    expect(layers, 0, "prefill")
+    expect(1, 0, "prefill")
     t0 = time.perf_counter()
     res = eng.generate(prompts, 64)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
-    expect(2 * layers, 63 * layers, "generate (one prefill, 63 decode "
-           "steps)")
+    expect(2, 63, "generate (one prefill, 63 decode steps)")
     check_tokens(res.tokens, "generate")
     if not np.isfinite(res.logprobs).all():
         fail("generate: non-finite logprobs")
-    print(f"serve: generate 4 x 2048 prompt tokens, 64 new: {t_gen:.2f} s; "
+    print(f"{tag}: generate 4 x 2048 prompt tokens, 64 new: {t_gen:.2f} s; "
           f"prefill alone {t_pre * 1e3:.1f} ms = "
           f"{4 * 2048 / t_pre:,.0f} prompt tokens/s; decode "
           f"{(t_gen - t_pre) / 63 * 1e3:.2f} ms/step; mean logprob "
@@ -675,18 +775,17 @@ def phase_serve(ops, dev):
 
     # ---- the slot API: 8 slots, two admitted batches
     state = eng.init_slots(8, max_out=64)
-    flash, decode = ops.LAUNCHES["flash_attention"], \
-        ops.LAUNCHES["decode_attention"]
+    prefills, steps = 2, 63
     for slots, plen, chunk, seed in (([0, 1, 2, 3], 1024, 16, 1),
-                                     ([4, 5, 6, 7], 3000, 48, 2)):
+                                     ([4, 5, 6, 7], long_len, 48, 2)):
         p = rng.integers(0, cfg.vocab, (4, plen))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lg, sl = eng.prefill(p)
         torch.cuda.synchronize()
         t_pre = time.perf_counter() - t0
-        flash += layers
-        expect(flash, decode, f"slot prefill {plen}")
+        prefills += 1
+        expect(prefills, steps, f"slot prefill {plen}")
         check_logits(lg, f"slot prefill {plen}")
         state = eng.admit(state, slots, lg, sl, prompt_len=plen, max_new=64,
                           seed=seed)
@@ -695,10 +794,10 @@ def phase_serve(ops, dev):
         state = eng.decode_chunk(state, chunk)
         torch.cuda.synchronize()
         t_dec = time.perf_counter() - t0
-        decode += chunk * layers
-        expect(flash, decode, f"decode_chunk({chunk})")
+        steps += chunk
+        expect(prefills, steps, f"decode_chunk({chunk})")
         check_logits(state.last, f"decode_chunk({chunk})")
-        print(f"serve: slots {slots}: prefill 4 x {plen} in "
+        print(f"{tag}: slots {slots}: prefill 4 x {plen} in "
               f"{t_pre * 1e3:.1f} ms = {4 * plen / t_pre:,.0f} prompt "
               f"tokens/s; decode_chunk({chunk}) over 8 slots "
               f"{t_dec / chunk * 1e3:.2f} ms/step", flush=True)
@@ -714,15 +813,15 @@ def phase_serve(ops, dev):
     if state.active.any():
         fail("release left a slot active")
     launches = dict(ops.LAUNCHES)
-    print(f"serve: slots n_out {n_out}; launches {launches}; peak memory "
+    print(f"{tag}: slots n_out {n_out}; launches {launches}; peak memory "
           f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
           flush=True)
     # where the time goes (printed, not gated; after the launch counts):
     # one 4 x 1,024 prefill, then 3 decode steps over the 8 slots' cache
     p = rng.integers(0, cfg.vocab, (4, 1024))
-    device_trace("serve-profile", "prefill", 1, lambda: eng.prefill(p))
+    device_trace(f"{tag}-profile", "prefill", 1, lambda: eng.prefill(p))
     tok = torch.full((8, 1), eng.eos_id, dtype=torch.int64, device=dev)
-    device_trace("serve-profile", "decode step", 3, lambda: [
+    device_trace(f"{tag}-profile", "decode step", 3, lambda: [
         M.decode_step(cfg, params, tok, state.cache, state.pos, device=dev)
         for _ in range(3)])
     del state
@@ -763,24 +862,60 @@ def phase_consistency(params, cfg, dev) -> None:
         fail(f"prefill/decode differ from forward by more than {tol:.4g}")
 
 
-def phase_card_cpu(dev) -> None:
-    """Reduced StarCoder2, float32, TF32 off: the same weights through
-    `Engine.generate` on the card (kernels) and on the CPU (plain)."""
+def phase_ssm_consistency(params, cfg, dev) -> None:
+    """Full width, bf16: prefill of 1,024 tokens, then 256 decode steps fed
+    the next tokens of the 1,280-token sequence, against `forward` over all
+    1,280 (the prefill's state and conv tail hand off to decode)."""
+    from repro_torch.models import model as M
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab, (2, 1280))
+    full, _ = M.forward(cfg, params, {"tokens": toks}, device=dev)
+    last, cache = M.prefill(cfg, params, {"tokens": toks[:, :1024]}, 1280,
+                            device=dev)
+    d_pre = (last.float() - full[:, 1023].float()).abs().max().item()
+    d_dec, agree, scale = 0.0, 0, full[:, 1023].float().abs().max().item()
+    tok = torch.as_tensor(toks, device=dev)
+    for i in range(1024, 1280):
+        lg, cache = M.decode_step(cfg, params, tok[:, i:i + 1], cache, i,
+                                  device=dev)
+        want = full[:, i].float()
+        d_dec = max(d_dec, (lg[:, 0].float() - want).abs().max().item())
+        scale = max(scale, want.abs().max().item())
+        agree += int((lg[:, 0].float().argmax(-1) == want.argmax(-1)).sum())
+    del cache, full
+    print(f"ssm-consistency: max|logit| {scale:.3f}; prefill vs forward "
+          f"max|diff| {d_pre:.4g}; 256 decode steps vs forward max|diff| "
+          f"{d_dec:.4g}; argmax agrees on {agree}/512", flush=True)
+    # as phase_consistency argues: a fault in the hand-off (a stale conv
+    # window, a wrong state) moves logits by about their own size; bf16
+    # rounding in two flows over 48 layers by a few percent
+    tol = scale / 8
+    if not max(d_pre, d_dec) <= tol:
+        fail(f"prefill/decode differ from forward by more than {tol:.4g}")
+
+
+def phase_card_cpu(dev, arch: str, prompt_len: int, tag: str) -> None:
+    """A reduced config, float32, TF32 off: the same weights through
+    prefill, a decode step and `Engine.generate` on the card (kernels) and
+    on the CPU (plain versions)."""
     from repro_torch import convert
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Engine
-    cfg = get_config(SERVE_ARCH).reduced()
+    cfg = get_config(arch).reduced()
     params = M.init_params(cfg, seed=0, device="cpu")
     card = convert.params_to(params, dev)
-    prompts = np.random.default_rng(2).integers(2, cfg.vocab, (3, 200))
+    prompts = np.random.default_rng(2).integers(2, cfg.vocab,
+                                                (3, prompt_len))
     last_c, cache_c = M.prefill(cfg, card, {"tokens": prompts}, 256,
                                 device=dev)
     last, cache = M.prefill(cfg, params, {"tokens": prompts}, 256,
                             device="cpu")
     nxt = last.argmax(-1)[:, None]
-    step_c, _ = M.decode_step(cfg, card, nxt, cache_c, 200, device=dev)
-    step, _ = M.decode_step(cfg, params, nxt, cache, 200, device="cpu")
+    step_c, _ = M.decode_step(cfg, card, nxt, cache_c, prompt_len,
+                              device=dev)
+    step, _ = M.decode_step(cfg, params, nxt, cache, prompt_len,
+                            device="cpu")
     d_pre = (last_c.cpu() - last).abs().max().item()
     d_dec = (step_c.cpu() - step).abs().max().item()
     res_c = Engine(cfg, card, max_len=256, temperature=0.7,
@@ -788,7 +923,7 @@ def phase_card_cpu(dev) -> None:
     res = Engine(cfg, params, max_len=256, temperature=0.7,
                  device="cpu").generate(prompts, 32)
     agree = int((res_c.tokens == res.tokens).sum())
-    print(f"card-cpu: prefill logits max|diff| {d_pre:.3g}, first decode "
+    print(f"{tag}: prefill logits max|diff| {d_pre:.3g}, first decode "
           f"step {d_dec:.3g}; generate tokens equal {agree}/"
           f"{res.tokens.size}", flush=True)
     # float32 on both sides; sums in other orders over two layers move a
@@ -815,6 +950,7 @@ def main() -> None:
     phase_build(ops)
     measured = phase_kernels(ops, topn, awc, dev)
     measured.update(phase_attention_kernels(ops, dev))
+    measured.update(phase_ssd_kernel(ops, dev))
     pool = paper_pool("sciq")
     cfg, state = phase_decision(pool, dev, TENANTS, DECISION_ROUNDS)
     launches = phase_fleet(pool, ops, dev, TENANTS, ROUNDS)
@@ -822,7 +958,8 @@ def main() -> None:
         fail(f"a kernel of the main path never launched: {launches}")
     phase_profile(pool, dev, cfg, state, PROFILE_ROUNDS)
     phase_quickstart(pool, ops, dev, QUICKSTART_ROUNDS)
-    serve_launches, params, cfg = phase_serve(ops, dev)
+    serve_launches, params, cfg = phase_serve(ops, dev, SERVE_ARCH, 3000,
+                                              "serve")
     for name in ("flash_attention", "decode_attention"):
         if serve_launches[name] == 0:
             fail(f"{name} never launched on the serving path")
@@ -831,7 +968,16 @@ def main() -> None:
     phase_consistency(params, cfg, dev)
     del params
     torch.cuda.empty_cache()
-    phase_card_cpu(dev)
+    phase_card_cpu(dev, SERVE_ARCH, 200, "card-cpu")
+    ssm_launches, params, cfg = phase_serve(ops, dev, SSM_ARCH, 3072,
+                                            "serve-ssm")
+    if ssm_launches["ssd_chunk"] == 0:
+        fail("ssd_chunk never launched on the SSM serving path")
+    launches["ssd_chunk"] = ssm_launches["ssd_chunk"]
+    phase_ssm_consistency(params, cfg, dev)
+    del params
+    torch.cuda.empty_cache()
+    phase_card_cpu(dev, SSM_ARCH, 64, "ssm-card-cpu")
 
     kernels = []
     for name, mod in ops.KERNELS.items():

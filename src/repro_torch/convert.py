@@ -80,7 +80,9 @@ def params_from_jax(cfg, tree, device="cuda"):
     """The JAX package's `models.model.init_params` tree (dicts of arrays,
     layers stacked on a leading axis) -> the port's parameters on
     ``device``: the same leaves, with ``layers`` unstacked into a list of
-    per-layer dicts."""
+    per-layer dicts ({"ln1", "attn", "ln2", "mlp"} for the dense family,
+    {"ln1", "ssm": {"w_in", "conv_w", "conv_b", "a_log", "d_skip",
+    "dt_bias", "norm", "w_out"}} for the SSM family)."""
     check_family(cfg)
     dev = resolve_device(device)
 

@@ -11,6 +11,9 @@
   decode_attention — one query token against a KV cache, per-row pos
              (CUDA C++, `csrc/decode_attention.cu`; replaces
              repro/kernels/decode_attention.py)
+  ssd_chunk — Mamba2 SSD intra-chunk dual form: y_intra and chunk states
+             (CUDA C++, `csrc/ssd_scan.cu`; replaces
+             repro/kernels/ssd_scan.py)
 
 `ops` dispatches by the tensor's device: a CPU tensor takes the plain
 PyTorch version, a CUDA tensor the kernel (built by nvcc at first use into

@@ -11,8 +11,8 @@ by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 name carries a hash of its source, so an edited source is rebuilt.
 
 `LAUNCHES` counts, per kernel, the launches made through `topn_lp`,
-`awc_fw`, `flash_attention` and `decode_attention`; `reset_launches` sets
-them to 0.
+`awc_fw`, `flash_attention`, `decode_attention` and `ssd_chunk`;
+`reset_launches` sets them to 0.
 """
 from __future__ import annotations
 
@@ -30,9 +30,10 @@ import torch
 from repro_torch.kernels import awc_fw as _awc
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import topn_lp as _topn
 
-KERNELS = {m.NAME: m for m in (_topn, _awc, _fa, _dec)}
+KERNELS = {m.NAME: m for m in (_topn, _awc, _fa, _dec, _ssd)}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -169,3 +170,15 @@ def decode_attention(q, k, v, pos):
     if out.numel():                  # an empty batch launches nothing
         LAUNCHES["decode_attention"] += 1
     return out
+
+
+def ssd_chunk(xd, acum, bm, cm):
+    """Mamba2 SSD intra-chunk dual form: xd (B,NC,L,H,P), acum (B,NC,L,H),
+    bm/cm (B,NC,L,N) -> (y (B,NC,L,H,P), states (B,NC,H,P,N)), fp32."""
+    if xd.device.type == "cpu":
+        return _ssd.ssd_chunk_plain(xd, acum, bm, cm)
+    _cuda_ready(xd, "ssd_chunk")
+    y, states = _ssd.ssd_chunk_cuda(library("ssd_chunk"), xd, acum, bm, cm)
+    if y.numel():                    # an empty batch launches nothing
+        LAUNCHES["ssd_chunk"] += 1
+    return y, states

@@ -3,15 +3,18 @@ prefill/decode over a persistent slot cache, plus the blocking
 per-request `generate`.
 
   prefill(prompts) -> (next-token logits, cache_slice)
-      One full-sequence forward (`models.model.prefill`) whose per-layer K/V
-      come back as a batch-shaped slice, ready to be written into free
-      slots; on the card its attention runs the `flash_attention` kernel.
+      One full-sequence forward (`models.model.prefill`) whose per-layer
+      cache (K/V, or an SSM layer's conv window and state) comes back as a
+      batch-shaped slice, ready to be written into free slots; on the card
+      its attention runs the `flash_attention` kernel and its SSD core the
+      `ssd_chunk` kernel.
 
   decode_chunk(state, steps) -> state
       Advances ALL slots of the replica together, whichever request owns
       each: every slot carries its own position (`decode_step` takes a (B,)
-      pos, and the `decode_attention` kernel reads each row's), its own
-      sampling key and step, and its own token budget.
+      pos, and the `decode_attention` kernel reads each row's; an SSM slot's
+      state needs none), its own sampling key and step, and its own token
+      budget.
 
   admit / release
       The slot manager. `admit` writes a prefill slice into free slot
@@ -25,7 +28,8 @@ share the batch — what makes the slot path equal `generate` per request.
 
 JAX jits these phases and donates the slot state; the port runs them
 eagerly and updates the state's tensors in place, returning the same
-object. The engine runs the dense family (`models.model.check_family`).
+object. The engine runs the dense and SSM families
+(`models.model.check_family`).
 """
 from __future__ import annotations
 
@@ -54,7 +58,8 @@ class SlotState:
     """Per-replica serving state: a slot-indexed cache plus per-slot decode
     bookkeeping. Cache leaves are (layers, slots, ...); the slot axis is the
     model batch axis, so `decode_step` advances every slot in one call."""
-    cache: Any                 # {"attn": {"k", "v"}}, leaves (layers, S, ...)
+    cache: Any                 # {"attn": {"k", "v"}} or {"ssm": {"conv",
+    #                            "state"}}, leaves (layers, S, ...)
     last: torch.Tensor         # (S, V) f32 next-token logits
     out: torch.Tensor          # (S, max_out) i32 generated tokens (eos-filled)
     pos: torch.Tensor          # (S,) i32 next decode position
@@ -86,9 +91,19 @@ def _sample(keys, last, temperature):
     return tok.to(torch.int32), chosen
 
 
+def _scatter_rows(big, sl, slot_ix) -> None:
+    """Write every leaf of the cache slice ``sl`` into rows ``slot_ix`` of
+    the matching leaf of ``big`` (JAX's `jax.tree.map` of `.at[].set`)."""
+    if isinstance(big, dict):
+        for name, leaf in big.items():
+            _scatter_rows(leaf, sl[name], slot_ix)
+        return
+    big[:, slot_ix] = sl.to(big.dtype)
+
+
 class Engine:
-    """One replica's generation engine over a dense ArchConfig model whose
-    parameters lie on ``device``."""
+    """One replica's generation engine over a dense or SSM ArchConfig model
+    whose parameters lie on ``device``."""
 
     def __init__(self, cfg: ArchConfig, params, *, max_len: int = 512,
                  eos_id: int = 1, temperature: float = 1.0,
@@ -172,8 +187,7 @@ class Engine:
         if rkeys is None:
             rkeys = _row_keys(prng.PRNGKey(seed, device=self.device), b)
         # JAX scatters into the donated state; the port writes in place
-        for name, big in state.cache["attn"].items():
-            big[:, slot_ix] = cache_slice["attn"][name].to(big.dtype)
+        _scatter_rows(state.cache, cache_slice, slot_ix)
         state.last[slot_ix] = lg.to(state.last.dtype)
         state.out[slot_ix] = self.eos_id
         state.pos[slot_ix] = pos0

@@ -16,6 +16,7 @@ from repro_torch.kernels import awc_fw as awc
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels import topn_lp as topn
 from repro_torch.models import model as M
 from repro_torch.serving.engine import Engine
@@ -157,4 +158,77 @@ def test_serving_path_runs_the_attention_kernels(dev):
     assert ops.LAUNCHES["decode_attention"] == cfg.n_layers * 5
     last_c, _ = M.prefill(cfg, card, {"tokens": prompts}, 64, device=dev)
     last, _ = M.prefill(cfg, params, {"tokens": prompts}, 64, device="cpu")
+    assert (last_c.cpu() - last).abs().max().item() <= 1e-4
+
+
+# ssd_chunk: fp32 products in another order than the plain version's
+# einsums, over up to 256 + 128 terms; held to 1e-4 of the largest value
+SSD_RTOL = 1e-4
+
+
+def ssd_inputs(b, nc, l, h, p, n, bc_dtype, slope, seed, dev):
+    """xd, acum as the model forms them; bm/cm as views into one wider
+    (B, S, 2N + 8) tensor, like the conv output they are cut from."""
+    g = torch.Generator().manual_seed(seed)
+    xd = torch.randn((b, nc, l, h, p), generator=g)
+    da = -slope * torch.rand((b, nc, l, h), generator=g)
+    acum = torch.cumsum(da, dim=2)
+    wide = torch.randn((b, nc * l, 2 * n + 8), generator=g).to(bc_dtype)
+    wide = wide.to(dev)
+    bm = wide[..., 8:8 + n].reshape(b, nc, l, n)
+    cm = wide[..., 8 + n:].reshape(b, nc, l, n)
+    return xd.to(dev), acum.to(dev), bm, cm
+
+
+@pytest.mark.parametrize("b,nc,l,h,p,n,bc_dtype,slope", [
+    (1, 2, 32, 2, 16, 8, torch.float32, 0.1),
+    (2, 4, 64, 4, 32, 16, torch.float32, 0.1),
+    (1, 1, 128, 8, 64, 64, torch.float32, 0.1),
+    (1, 1, 100, 48, 64, 128, torch.bfloat16, 2.0),      # ragged L
+    (2, 3, 256, 12, 64, 40, torch.float32, 30.0),       # steep decay
+    (4, 8, 256, 48, 64, 128, torch.bfloat16, 2.0)])     # the serving shape
+def test_ssd_chunk_kernel_matches_plain(dev, b, nc, l, h, p, n, bc_dtype,
+                                        slope):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = ssd_inputs(b, nc, l, h, p, n, bc_dtype, slope, l + h, dev)
+    before = ops.LAUNCHES["ssd_chunk"]
+    y, st = ops.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_chunk"] == before + 1
+    wy, wst = ssd.ssd_chunk_plain(*args)
+    for got, want in ((y, wy), (st, wst)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert torch.isfinite(got).all()
+        err = (got - want).abs().max().item()
+        assert err <= SSD_RTOL * want.abs().max().item(), err
+
+
+def test_ssd_chunk_rejects_what_it_does_not_take(dev):
+    xd, acum, bm, cm = ssd_inputs(1, 1, 32, 2, 16, 8, torch.float32, 0.1, 0,
+                                  dev)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.ssd_chunk(xd[..., :8].contiguous(), acum, bm, cm)
+    with pytest.raises(TypeError):
+        ops.ssd_chunk(xd, acum, bm, cm.bfloat16())
+    big = ssd_inputs(1, 1, 300, 2, 16, 8, torch.float32, 0.1, 0, dev)
+    with pytest.raises(ValueError, match="chunks of 1..256"):
+        ops.ssd_chunk(*big)
+
+
+def test_ssm_serving_path_runs_ssd_chunk(dev):
+    """The reduced Mamba2 in float32: every prefill launches one ssd_chunk
+    per layer, a decode step none, and the logits match the CPU's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("mamba2-780m").reduced()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    card = convert.params_to(params, dev)
+    prompts = np.random.default_rng(0).integers(2, cfg.vocab, (3, 64))
+    ops.reset_launches()
+    Engine(cfg, card, max_len=128, device=dev).generate(prompts, 6)
+    assert ops.LAUNCHES["ssd_chunk"] == cfg.n_layers
+    assert ops.LAUNCHES["flash_attention"] == 0
+    assert ops.LAUNCHES["decode_attention"] == 0
+    last_c, _ = M.prefill(cfg, card, {"tokens": prompts}, 128, device=dev)
+    last, _ = M.prefill(cfg, params, {"tokens": prompts}, 128, device="cpu")
     assert (last_c.cpu() - last).abs().max().item() <= 1e-4

@@ -279,6 +279,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         Engine(cfg, params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.params_from_jax(cfg, {"embed": {}, "layers": {}, "lnf": {}})
+    scfg = get_config("mamba2-780m").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_mod.init_params(scfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_mod.init_decode_caches(scfg, 1, 8)
+    sparams = model_mod.init_params(scfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_mod.forward(scfg, sparams, {"tokens": toks})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_mod.prefill(scfg, sparams, {"tokens": toks}, 8)
+    scache = model_mod.init_decode_caches(scfg, 1, 8, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_mod.decode_step(scfg, sparams, toks[:, :1], scache, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(scfg, sparams)
 
 
 # ===================================================== import hygiene
@@ -308,7 +323,8 @@ def test_port_loads_no_jax_and_no_reference_module():
             "import repro_torch, repro_torch.router.fleet, "
             "repro_torch.core.bandit, repro_torch.convert, "
             "repro_torch.kernels.ops, repro_torch.serving.engine, "
-            "repro_torch.models.model, repro_torch.configs.base\n"
+            "repro_torch.models.model, repro_torch.configs.base, "
+            "repro_torch.models.ssm, repro_torch.kernels.ssd_scan\n"
             "from repro_torch.configs.base import list_archs\n"
             "list_archs()\n"
             "bad = [m for m in sys.modules if m == 'jax' or "

@@ -9,6 +9,8 @@ same selected terms, K·2⁻²⁴·Σ|cost| (the plain versions sum in arm-index
 order, as the kernels do; XLA sums in its own order). The kernels
 themselves are held against these plain versions on the card by
 `tests/test_torch_cuda.py` and `chip_smoke.py`."""
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,7 @@ from repro_torch.kernels import awc_fw as awc
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels import topn_lp as topn
 
 torch.set_num_threads(1)
@@ -147,6 +150,7 @@ def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
     monkeypatch.setattr(awc, "awc_fw_plain", boom)
     monkeypatch.setattr(fa, "flash_attention_plain", boom)
     monkeypatch.setattr(dec, "decode_attention_plain", boom)
+    monkeypatch.setattr(ssd, "ssd_chunk_plain", boom)
     x = _ClaimsCuda()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ops.topn_lp(x, x, x)
@@ -156,6 +160,8 @@ def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
         ops.flash_attention(x, x, x)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ops.decode_attention(x, x, x, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.ssd_chunk(x, x, x, x)
     assert ops.LAUNCHES == {name: 0 for name in ops.KERNELS}
 
 
@@ -181,13 +187,19 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
 
 def test_kernel_sources_and_build_flags():
     """Each kernel is CUDA C++ in the repo, built for sm_90a with a plain C
-    entry; the library name follows the source's content."""
+    entry; the library name follows the source's content; REPLACES names
+    the line of the JAX package's Pallas kernel function of that name."""
+    root = Path(__file__).resolve().parents[1]
     for name, mod in ops.KERNELS.items():
         src = mod.SOURCE.read_text()
         assert mod.SOURCE.suffix == ".cu"
         assert f'extern "C" int {mod.ENTRY}' in src
         assert "cudaGetLastError" in src
         assert name in ops.library_path(name).name
-        assert mod.REPLACES.startswith(f"src/repro/kernels/{name}.py:")
+        path, line = mod.REPLACES.rsplit(":", 1)
+        assert path.startswith("src/repro/kernels/")
+        body = (root / path).read_text()
+        assert body.splitlines()[int(line) - 1].startswith(f"def {name}(")
+        assert "pl.pallas_call" in body
     assert "arch=compute_90a,code=sm_90a" in ops.NVCC_FLAGS
     assert ops.BUILD_DIR.parts[-2:] == ("build", "kernels")

@@ -158,7 +158,7 @@ def test_prefill_then_decode_matches_forward(pair):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("mamba2-780m", "A20"), ("olmoe-1b-7b", "A21"), ("zamba2-2.7b", "A23"),
+    ("olmoe-1b-7b", "A21"), ("zamba2-2.7b", "A23"),
     ("qwen2-vl-72b", "A24"), ("whisper-large-v3", "A25")])
 def test_other_families_raise_naming_their_item(arch, item):
     cfg = get_config(arch).reduced()

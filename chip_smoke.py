@@ -557,16 +557,24 @@ def phase_attention_kernels(ops, dev):
     results = {}
     bf16, f32 = torch.bfloat16, torch.float32
     # (label, B, S, H, KV, hd, causal, window, dtype); "main" is a prefill
-    # of 4 prompts of 2,048 tokens at StarCoder2-7B's heads
+    # of 4 prompts of 2,048 tokens at StarCoder2-7B's heads; S129 to win100
+    # sit on the bf16 kernel's 128-row and 128-key tile edges
     cases = [("main", 4, 2048, 36, 4, 128, True, None, bf16),
              ("B1S128", 1, 128, 4, 4, 64, True, None, f32),
+             ("B1S128", 1, 128, 4, 4, 64, True, None, bf16),
              ("ragged", 2, 200, 9, 1, 128, True, None, f32),
              ("ragged", 2, 200, 9, 1, 128, True, None, bf16),
              ("win32", 1, 256, 4, 2, 64, True, 32, f32),
+             ("win32", 1, 256, 4, 2, 64, True, 32, bf16),
              ("full", 1, 128, 2, 2, 64, False, None, f32),
              ("fullwin", 2, 77, 8, 2, 128, False, 40, bf16),
-             ("S1025", 2, 1025, 36, 4, 128, True, None, bf16)]
-    worst, main = 0.0, None
+             ("S1025", 2, 1025, 36, 4, 128, True, None, bf16),
+             ("S129", 1, 129, 9, 1, 128, True, None, bf16),
+             ("S257", 1, 257, 9, 1, 128, True, None, bf16),
+             ("S127", 2, 127, 8, 2, 64, True, None, bf16),
+             ("S255", 1, 255, 4, 4, 64, False, None, bf16),
+             ("win100", 1, 300, 8, 2, 128, True, 100, bf16)]
+    errs, worst, main = [], 0.0, None
     for label, b, s, h, kv, hd, causal, window, dt in cases:
         q = rnd((b, s, h, hd), dt)
         k, v = rnd((b, s, kv, hd), dt), rnd((b, s, kv, hd), dt)
@@ -576,6 +584,8 @@ def phase_attention_kernels(ops, dev):
         torch.cuda.synchronize()
         err = (out.float() - want.float()).abs().max().item()
         worst = max(worst, err)
+        if dt == bf16:
+            errs.append(f"{label}={err:.3g}")
         if not err <= ATTN_ATOL[dt]:
             fail(f"flash_attention {label} {dt}: max|diff| {err}")
         print(f"flash_attention {label:8s} B={b} S={s} H={h} KV={kv} "
@@ -588,12 +598,16 @@ def phase_attention_kernels(ops, dev):
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True))
-            b_ms, b_by = bound(*flash_cost(q, k, True), BF16_OPS_PER_S)
+            nbytes, flops = flash_cost(q, k, True)
+            b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
             main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib_ms)
             print(f"flash_attention main: kernel={ms:.4f}ms "
-                  f"plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the "
+                  f"bound) plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
                   f"bound={b_ms:.5f}ms ({b_by})", flush=True)
+    print(f"flash_attention bf16 P design: two bf16 parts (hi + lo); "
+          f"max|diff| {' '.join(errs)}", flush=True)
     results["flash_attention"] = dict(max_abs_err=worst, **main)
 
     # (label, B, T, H, KV, hd, pos, dtype); "main" is a decode step of the

@@ -8,18 +8,28 @@ softmaxed in fp32; the output is in q's dtype.
 
 Bound on the H100: operations. The serving path's prefill (B 4, S 2,048,
 H 36, hd 128, bf16, causal) is 2·S²·hd·H·B ≈ 155 GFLOP against ~38 MB of
-q/k/v/o, ~0.16 ms at the tensor cores' 989 TFLOP/s. bf16 inputs run both
-products on the tensor cores (mma.sync, fp32 accumulate; P enters the
-second product as two bf16 parts, ~16 bits); fp32 inputs run on the CUDA
-cores in fp32, so they stay exact to fp32. wgmma and TMA are later work.
+q/k/v/o, ~0.16 ms at the tensor cores' 989 TFLOP/s. fp32 inputs run on the
+CUDA cores in fp32, so they stay exact to fp32.
 
-Design (`csrc/flash_attention.cu`): one block of 128 threads per (64-row q
-tile, head, batch row) loops over 64-key k/v tiles staged in shared memory;
-m, l and the fp32 accumulator stay in registers across the loop (the Pallas
-kernel's sequential kv grid axis, carried in VMEM there). Tiles outside the
-causal or window band are skipped. The (B, S, H, hd) layout is read in
-place through strides, with no transposed copy, and ragged S and T edges are
-bounded, so the port has no S % 256 rule. head_dim 64 and 128 are built.
+Design of the bf16 kernel (`csrc/flash_attention.cu`,
+`flash_attention_wgmma_kernel`), FlashAttention-3's structure: a block of
+three warpgroups takes 128 query rows of one (head, batch row). Warpgroup 0
+is the producer: one thread copies Q once, and K and V 128 keys at a time
+into a 3-stage ring of shared-memory buffers, with TMA over 4-d tensor maps
+built from the caller's strides (so the (B, S, H, hd) layout is read in
+place, and rows past S or T arrive as zeros), behind a "full" and an
+"empty" mbarrier per stage. Warpgroups 1 and 2 each own 64 rows: S = Q Kᵀ
+and O += P V are wgmma products (bf16 in, fp32 accumulate; P from
+registers, V read N-major straight from its tile). Each tile's Q Kᵀ is
+issued together with the previous tile's P V, so a tile's softmax runs
+while the previous tile's P V is on the tensor cores, and the two
+warpgroups take turns to issue. P enters P V as two bf16 parts (~16 bits).
+m, l and O stay in registers for the whole loop (the Pallas kernel's
+sequential kv grid axis, carried in VMEM there). Tiles outside the causal
+or window band are not loaded; the heaviest causal q tiles are launched
+first. Ragged S and T are bounded, so the port has no S % 256 rule.
+head_dim 64 and 128 are built. The fp32 kernel keeps the simpler design of
+`flash_attention_kernel`: 64-row blocks of 128 threads over 64-key tiles.
 """
 from __future__ import annotations
 

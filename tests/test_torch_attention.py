@@ -6,9 +6,10 @@ layout. `flash_attention_plain` and `decode_attention_plain` are held
 against `repro.kernels.ref` and against the Pallas kernels run in interpret
 mode, at atol 2e-5 in float32 (`tests/test_kernels.py`'s ATOL): the sums
 are the same but taken in another order. GQA ratios 1, 4 and 9, head_dim 64
-and 128, causal, window 32 and non-causal masks, a ragged S = T = 200
-(against `ref` only: the Pallas wrapper needs S % bq == 0), and per-row and
-scalar decode positions. The CUDA kernels are held against these plain
+and 128, causal, window 32 and non-causal masks, ragged S = T = 200 and
+the bf16 CUDA kernel's tile edges S = 127, 129 and 257 (against `ref` only:
+the Pallas wrapper needs S % bq == 0), and per-row and scalar decode
+positions. The CUDA kernels are held against these plain
 versions on the card by `tests/test_torch_cuda.py` and `chip_smoke.py`.
 """
 import jax.numpy as jnp
@@ -44,6 +45,9 @@ def close(got, want):
     (2, 128, 8, 2, 64),       # GQA 4x
     (1, 64, 9, 1, 128),       # n_rep 9 (StarCoder2-7B's ratio), wide head
     (2, 200, 9, 1, 64),       # ragged S = T
+    (1, 129, 9, 1, 128),      # one row past the CUDA kernel's 128-row tile
+    (1, 257, 9, 1, 128),      # one row past two tiles
+    (2, 127, 8, 2, 64),       # one row short of a tile
 ])
 @pytest.mark.parametrize("mask", ["causal", "window32", "full"])
 def test_flash_plain_matches_ref(b, s, h, kv, hd, mask):

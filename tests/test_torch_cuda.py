@@ -107,7 +107,12 @@ def _attn_inputs(shapes, dtype, seed, dev):
 @pytest.mark.parametrize("b,s,h,kv,hd,causal,window", [
     (1, 128, 4, 4, 64, True, None), (2, 200, 9, 1, 128, True, None),
     (1, 256, 4, 2, 64, True, 32), (1, 128, 2, 2, 64, False, None),
-    (2, 77, 8, 2, 128, False, 40), (4, 2048, 36, 4, 128, True, None)])
+    (2, 77, 8, 2, 128, False, 40), (4, 2048, 36, 4, 128, True, None),
+    # the bf16 kernel's 128-row and 128-key tile edges, and a window that
+    # crosses one
+    (1, 129, 9, 1, 128, True, None), (1, 129, 9, 1, 128, False, None),
+    (1, 257, 9, 1, 128, True, None), (2, 127, 8, 2, 64, True, None),
+    (1, 300, 8, 2, 128, True, 100)])
 def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, h, kv, hd,
                                               causal, window):
     q, k, v = _attn_inputs([(b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)],

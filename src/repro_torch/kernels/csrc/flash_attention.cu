@@ -851,18 +851,20 @@ int launch_wgmma(const Args& a, int b, int hd, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16. Strides are in elements, for (B, S, H, hd)
-// q/o and (B, T, KV, hd) k/v whose last dim is contiguous.
+// q/o and (B, T, KV, hd) k/v whose last dim is contiguous. Scores are
+// scaled by `scale`: 1/sqrt(hd), or that of a smaller head_dim whose
+// inputs were zero-padded to hd.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype, int b,
-    int s, int t, int h, int kv, int hd, long long qb, long long qs,
-    long long qh, long long kb, long long ks, long long kh, long long vb,
-    long long vs, long long vh, long long ob, long long os, long long oh,
-    int causal, int has_window, int window, void* stream) {
+    int s, int t, int h, int kv, int hd, float scale, long long qb,
+    long long qs, long long qh, long long kb, long long ks, long long kh,
+    long long vb, long long vs, long long vh, long long ob, long long os,
+    long long oh, int causal, int has_window, int window, void* stream) {
   if (b <= 0 || s <= 0 || t <= 0 || kv <= 0 || h % kv != 0 || h > 65535 ||
       b > 65535)
     return (int)cudaErrorInvalidValue;
   Args a{q, k, v, o, s, t, h, kv, h / kv, qb, qs, qh, kb, ks, kh, vb, vs, vh,
-         ob, os, oh, 1.0f / sqrtf((float)hd), causal, has_window, window};
+         ob, os, oh, scale, causal, has_window, window};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0 && hd == 64)
     return launch(flash_attention_kernel<64>, smem_bytes<64>(), a, b, st);

@@ -14,31 +14,69 @@ the step's 14.8 GB weight read (~4.4 ms).
 Design (`csrc/decode_attention.cu`): one block per (KV head, row, split
 of T) serving the KV head's n_rep query heads, so every cache row is read
 once (the Pallas grid's block per query head would read it n_rep = 9
-times). A split covers up to 8 tiles of 64 slots and stops at min(pos,
-T-1), which is the Pallas kernel's block skip; splitting T turns the 32
-(KV head, row) pairs of the serving shape into 256 blocks. Tiles are staged
-with 16-byte loads and reduced with an fp32 online softmax per head; a
-second kernel merges the splits' (m, l, acc) from a scratch buffer this
-wrapper allocates. head_dim 64 and 128 are built, n_rep·hd <= 2,048.
+times). A split stops at min(pos, T-1), which is the Pallas kernel's block
+skip, and a block whose split starts past pos exits before any load.
+`split_plan` picks the split length from T and B·KV so that a full cache
+gives about two blocks per SM, and no split is shorter than 256 slots (448
+slots at the serving shape). The splits' (m, l, acc) go to a scratch
+buffer this wrapper allocates per call; for bf16 the last block of a row
+to finish merges them, counted in (row, KV head) counters at the end of
+that scratch, which the launch zeroes in stream order (a memset before the
+kernel), so calls on several streams or in a CUDA graph share nothing; for
+fp32 a second kernel merges. The bf16 kernel runs both products on the tensor
+cores (mma.sync, the n_rep heads as M rows), each warp streaming its 16
+slots of every 64-slot tile through a 3-stage cp.async ring; the fp32
+kernel stages fp32 tiles and runs on the CUDA cores. head_dim 64 and 128
+are built, n_rep·hd <= 2,048.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.flash_attention import (DTYPE_CODES, NEG_INF,
+from repro_torch.kernels.flash_attention import (BUILT_HEAD_DIMS,
+                                                 DTYPE_CODES, NEG_INF,
                                                  check_qkv, repeat_kv)
 
 NAME = "decode_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 REPLACES = "src/repro/kernels/decode_attention.py:67"
 ENTRY = "decode_attention_launch"
-ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
             + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
+HEAD_DIMS = BUILT_HEAD_DIMS      # 64 and 128, no pad route
 MAX_OUT = 2048          # n_rep · hd a block's threads hold
+TILE = 64               # slots per tile
+FP32_SPLIT_TILES = 8    # the fp32 kernel's split: 512 slots
+WAVES = 2               # bf16: blocks per SM over a full cache
+MIN_SPLIT_TILES = 4     # bf16: a split streams at least 256 slots
+MAX_SPLITS = 64         # bf16: splits of T a row's last block merges
+
+
+def split_plan(t: int, bkv: int, dtype, sms: int):
+    """(tiles per split, splits) for a cache of ``t`` slots, ``bkv`` (row,
+    KV head) pairs and a card of ``sms`` SMs. A bf16 split is as long as
+    lets a full cache give ``WAVES`` blocks per SM (rows with half the
+    cache in use then give one), but at least ``MIN_SPLIT_TILES`` tiles,
+    which a block's start-up and the merge would not repay below, and at
+    most ``MAX_SPLITS`` splits; fp32 keeps 8 tiles."""
+    tiles = -(-t // TILE)
+    if dtype == torch.float32:
+        per = FP32_SPLIT_TILES
+    else:
+        per = max(MIN_SPLIT_TILES, tiles * bkv // (WAVES * sms),
+                  -(-tiles // MAX_SPLITS))
+    per = min(per, tiles)
+    return per, -(-tiles // per)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def row_positions(pos, b: int, device) -> torch.Tensor:
@@ -70,7 +108,7 @@ def decode_attention_plain(q, k, v, pos):
 def decode_attention_cuda(lib, q, k, v, pos):
     """Launch the kernel on the current stream: q (B,1,H,hd), cache k/v
     (B,T,KV,hd) contiguous CUDA tensors of one dtype, pos scalar or (B,)."""
-    check_qkv("decode_attention", q, k, v)
+    check_qkv(NAME, q, k, v, HEAD_DIMS)
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
     if s != 1:
@@ -80,21 +118,30 @@ def decode_attention_cuda(lib, q, k, v, pos):
                          f"{MAX_OUT}, got {h // kv}·{hd}")
     if t == 0:
         raise ValueError("decode_attention: the cache has no slots")
-    pos_r = row_positions(pos, b, q.device)
+    if (isinstance(pos, torch.Tensor) and pos.dtype == torch.int32
+            and pos.device == q.device and pos.shape == (b,)
+            and pos.is_contiguous()):
+        pos_r = pos                  # the serving path's pos: no copy
+    else:
+        pos_r = row_positions(pos, b, q.device)
     out = torch.empty_like(q)
     if b == 0:
         return out
-    splits_fn = lib.decode_attention_splits
-    splits_fn.argtypes, splits_fn.restype = [ctypes.c_int], ctypes.c_int
-    splits = splits_fn(t)
-    part = (torch.empty(b * kv * splits * (h // kv) * (hd + 2),
-                        dtype=torch.float32, device=q.device)
-            if splits > 1 else None)
+    per, splits = split_plan(t, b * kv, q.dtype, _sm_count(q.device.index))
+    part = count = None
+    if splits > 1:
+        # (m, l, acc) of every split, then bf16's int32 split counters
+        n_part = b * kv * splits * (h // kv) * (hd + 2)
+        scratch = torch.empty(n_part + b * kv, dtype=torch.float32,
+                              device=q.device)
+        part = scratch.data_ptr()
+        if q.dtype == torch.bfloat16:
+            count = part + 4 * n_part
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_r.data_ptr(),
-        out.data_ptr(), None if part is None else part.data_ptr(),
-        DTYPE_CODES[q.dtype], b, t, h, kv, hd,
+        out.data_ptr(), part, count, DTYPE_CODES[q.dtype], b, t, h, kv, hd,
+        per, splits,
         q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3],
         out.stride(0), out.stride(2), stream)
     if err != 0:

@@ -30,6 +30,13 @@ or window band are not loaded; the heaviest causal q tiles are launched
 first. Ragged S and T are bounded, so the port has no S % 256 rule.
 head_dim 64 and 128 are built. The fp32 kernel keeps the simpler design of
 `flash_attention_kernel`: 64-row blocks of 128 threads over 64-key tiles.
+
+head_dim 80 (zamba2-2.7b) and 120 (h2o-danube-3-4b) take the pad route:
+`pad_head_dim` zero-pads q, k and v to 128 columns, the hd-128 kernel runs
+with the true 1/sqrt(hd) as its scale (zero columns add nothing to Q Kᵀ,
+and V's only fill the output columns that are cut off), and the first hd
+columns are copied out. The copies and the 128/hd extra work are the
+price; a build that reads 120 or 80 columns in place is ROADMAP B3c.
 """
 from __future__ import annotations
 
@@ -44,11 +51,13 @@ NAME = "flash_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:89"
 ENTRY = "flash_attention_launch"
-ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
             + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
             + [ctypes.c_void_p])
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+BUILT_HEAD_DIMS = (64, 128)       # the head_dims the CUDA source builds
+PAD_TO = 128                      # the build the other head_dims pad to
+HEAD_DIMS = (64, 80, 120, 128)    # what the wrapper takes (80, 120 padded)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -62,14 +71,17 @@ def repeat_kv(k, n_rep: int):
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          window: Optional[int] = None):
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None):
     """Plain PyTorch version (port of `repro.kernels.ref.flash_attention`):
-    q (B,S,H,hd), k/v (B,T,KV,hd) -> (B,S,H,hd), fp32 softmax."""
+    q (B,S,H,hd), k/v (B,T,KV,hd) -> (B,S,H,hd), fp32 softmax; scores
+    scaled by ``scale``, 1/sqrt(hd) by default."""
     b, s, h, hd = q.shape
     t = k.shape[1]
     k = repeat_kv(k, h // k.shape[2])
     v = repeat_kv(v, h // v.shape[2])
-    sc = torch.einsum("bshk,bthk->bhst", q.float(), k.float()) / math.sqrt(hd)
+    sc = torch.einsum("bshk,bthk->bhst", q.float(), k.float())
+    sc = sc * scale if scale is not None else sc / math.sqrt(hd)
     qpos = torch.arange(s, device=q.device)[:, None]
     kpos = torch.arange(t, device=q.device)[None, :]
     mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
@@ -82,10 +94,12 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return torch.einsum("bhst,bthk->bshk", w, v.float()).to(q.dtype)
 
 
-def check_qkv(name: str, q, k, v) -> None:
+def check_qkv(name: str, q, k, v,
+              head_dims: tuple = BUILT_HEAD_DIMS) -> None:
     """What both attention kernels take: contiguous, 16-byte aligned 4-d q,
     k, v on one device, in one dtype (float32 or bfloat16), k and v of one
-    shape, whole KV groups, and a built head_dim."""
+    shape, whole KV groups, and one of the kernel ``name``'s ``head_dims``
+    (each kernel module passes its own `HEAD_DIMS`)."""
     for n, x in (("q", q), ("k", k), ("v", v)):
         if x.dim() != 4:
             raise ValueError(f"{name}: {n} must be 4-d, got {tuple(x.shape)}")
@@ -111,30 +125,52 @@ def check_qkv(name: str, q, k, v) -> None:
     if k.shape[2] == 0 or h % k.shape[2]:
         raise ValueError(f"{name}: {h} query heads are not a multiple of "
                          f"{k.shape[2]} KV heads")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name} is built for head_dim {HEAD_DIMS}, "
+    if hd not in head_dims:
+        raise ValueError(f"{name} is built for head_dim {head_dims}, "
                          f"got {hd}")
+
+
+def pad_head_dim(q, k, v):
+    """The pad route of a head_dim the source does not build: (q, k, v)
+    zero-padded along hd to `PAD_TO` columns, and 1/sqrt(hd) of the true
+    hd. A built head_dim comes back as it is."""
+    hd = q.shape[3]
+    if hd not in BUILT_HEAD_DIMS:
+        q, k, v = (torch.nn.functional.pad(x, (0, PAD_TO - hd))
+                   for x in (q, k, v))
+    return q, k, v, 1.0 / math.sqrt(hd)
+
+
+def row_error_ratio(out, want, rtol: float = 1e-2,
+                    atol: float = 1e-4) -> float:
+    """The worst (row, head) output vector's max |out − want| over
+    rtol · max |want| + atol: above 1, some vector misses by more than its
+    own scale allows. out/want (B, S, H, hd)."""
+    out, want = out.float(), want.float()
+    err = (out - want).abs().amax(dim=-1)
+    return (err / (rtol * want.abs().amax(dim=-1) + atol)).max().item()
 
 
 def flash_attention_cuda(lib, q, k, v, *, causal: bool = True,
                          window: Optional[int] = None):
     """Launch the kernel on the current stream: q (B,S,H,hd), k/v
     (B,T,KV,hd) contiguous CUDA tensors of one dtype."""
-    check_qkv("flash_attention", q, k, v)
+    check_qkv(NAME, q, k, v, HEAD_DIMS)
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    if out.numel() == 0 or t == 0:
-        if out.numel():
+    if q.numel() == 0 or t == 0:
+        if q.numel():
             raise ValueError("flash_attention: no keys to attend to")
-        return out
+        return torch.empty_like(q)
+    q, k, v, scale = pad_head_dim(q, k, v)
+    out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        DTYPE_CODES[q.dtype], b, s, t, h, kv, hd,
+        DTYPE_CODES[q.dtype], b, s, t, h, kv, q.shape[3], scale,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], int(bool(causal)), int(window is not None),
         int(window or 0), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
-    return out
+    return out if out.shape[3] == hd else out[..., :hd].contiguous()

@@ -142,3 +142,97 @@ def test_kernel_wrappers_reject_what_they_do_not_take():
         fa.check_qkv("flash_attention", q[:, :, :3].contiguous(), k, v)
     with pytest.raises(ValueError, match="pos must be"):
         dec.row_positions(torch.zeros(3, dtype=torch.int32), 2, q.device)
+
+
+# the F4 reproducer's shapes: H2O-Danube-3-4B's 32 query / 8 KV heads of
+# head_dim 120; head_dim 32 is built by neither kernel
+@pytest.mark.parametrize("name,hd,takes", [
+    ("flash_attention", 120, True), ("flash_attention", 80, True),
+    ("flash_attention", 32, False), ("decode_attention", 120, False),
+    ("decode_attention", 80, False), ("decode_attention", 32, False)])
+def test_check_qkv_takes_each_kernels_head_dims(name, hd, takes):
+    """Each kernel module passes its own head_dims to `check_qkv`."""
+    mod = {fa.NAME: fa, dec.NAME: dec}[name]
+    q = torch.zeros((1, 8, 32, hd), dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 8, hd), dtype=torch.bfloat16)
+    if takes:
+        fa.check_qkv(name, q, k, k.clone(), mod.HEAD_DIMS)
+    else:
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.check_qkv(name, q, k, k.clone(), mod.HEAD_DIMS)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,window", [
+    (1, 40, 8, 2, 120, None),     # H2O-Danube-3-4B's head_dim, GQA 4x
+    (2, 33, 4, 1, 120, 16),       # with a window, as its prefill has
+    (1, 24, 4, 4, 80, None)])     # Zamba2-2.7B's head_dim
+def test_pad_route_is_the_attention_at_the_true_head_dim(b, s, h, kv, hd,
+                                                         window):
+    """What `flash_attention_cuda` does for head_dim 120 and 80: the
+    plain attention of the inputs zero-padded to 128 columns, scaled by
+    1/sqrt of the true head_dim, is the attention at that head_dim in its
+    first columns, and zero in the rest; both match the JAX reference."""
+    q, k, v = (torch.tensor(x) for x in qkv(b, s, s, h, kv, hd, seed=hd + s))
+    qp, kp, vp, scale = fa.pad_head_dim(q, k, v)
+    assert qp.shape[3] == kp.shape[3] == vp.shape[3] == fa.PAD_TO
+    assert scale == 1.0 / np.sqrt(hd)
+    got = fa.flash_attention_plain(qp, kp, vp, causal=True, window=window,
+                                   scale=scale)
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    close(got[..., :hd], want)
+    assert not got[..., hd:].any()
+    close(got[..., :hd], ref.flash_attention(
+        jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+        jnp.asarray(v.numpy()), causal=True, window=window))
+    # a built head_dim is not padded
+    q64, k64, v64 = (x[..., :64].contiguous() for x in (q, k, v))
+    assert fa.pad_head_dim(q64, k64, v64)[0] is q64
+
+
+MAIN_POS = [1100, 1110, 1120, 1130, 3040, 3041, 3047, 3055]
+
+
+@pytest.fixture(scope="module")
+def main_decode():
+    """The serving path's decode shape (chip_smoke.py phase 3's "main"):
+    q (8, 1, 36, 128), cache (8, 4,096, 4, 128), float32, and the plain
+    output at its positions (a row at a time, to keep the CPU's memory
+    small)."""
+    q, k, v = (torch.tensor(x) for x in qkv(8, 1, 4096, 36, 4, 128, seed=16))
+    pos = torch.tensor(MAIN_POS, dtype=torch.int32)
+    want = torch.cat([dec.decode_attention_plain(q[i:i + 1], k[i:i + 1],
+                                                 v[i:i + 1], pos[i])
+                      for i in range(len(MAIN_POS))])
+    return q, k, v, pos, want
+
+
+def test_row_check_passes_bf16_rounding(main_decode):
+    """`row_error_ratio` at chip_smoke.py's per-row tolerance passes the
+    plain output rounded to bf16, the kernel's own output rounding."""
+    *_, want = main_decode
+    assert fa.row_error_ratio(want.bfloat16(), want, 1e-2, 1e-4) <= 1
+
+
+@pytest.mark.parametrize("row", [0, 3, 4, 7])
+def test_row_check_fails_a_row_without_its_last_64_slots(main_decode, row):
+    """A kernel that drops one row's last 64 visible slots (one tile)
+    fails the per-row check, though it may pass the 2e-2 max gate."""
+    q, k, v, pos, want = main_decode
+    out = want.clone()
+    out[row] = dec.decode_attention_plain(q[row:row + 1], k[row:row + 1],
+                                          v[row:row + 1], pos[row] - 64)[0]
+    assert fa.row_error_ratio(out, want, 1e-2, 1e-4) > 1
+
+
+@pytest.mark.parametrize("t,bkv,dtype,want", [
+    (4096, 32, torch.bfloat16, (7, 10)),   # the serving path's decode step
+    (4096, 12, torch.bfloat16, (4, 16)),   # 256-slot splits: the floor
+    (32768, 1, torch.bfloat16, (8, 64)),   # no more than 64 splits
+    (77, 3, torch.bfloat16, (2, 1)),       # a cache shorter than a split
+    (4096, 32, torch.float32, (8, 8))])    # fp32 keeps 512-slot splits
+def test_decode_split_plan(t, bkv, dtype, want):
+    """The split of T the wrapper launches on a 132-SM card: (tiles of 64
+    slots per split, splits); the splits cover the cache."""
+    per, splits = dec.split_plan(t, bkv, dtype, 132)
+    assert (per, splits) == want
+    assert (splits - 1) * per * dec.TILE < t <= splits * per * dec.TILE

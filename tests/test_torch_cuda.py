@@ -112,7 +112,11 @@ def _attn_inputs(shapes, dtype, seed, dev):
     # crosses one
     (1, 129, 9, 1, 128, True, None), (1, 129, 9, 1, 128, False, None),
     (1, 257, 9, 1, 128, True, None), (2, 127, 8, 2, 64, True, None),
-    (1, 300, 8, 2, 128, True, 100)])
+    (1, 300, 8, 2, 128, True, 100),
+    # head_dim 120 (H2O-Danube-3-4B's prefill, a ragged one) and 80: the
+    # pad route to the hd-128 build
+    (4, 1024, 32, 8, 120, True, 4096), (2, 200, 32, 8, 120, True, None),
+    (2, 129, 32, 32, 80, True, None)])
 def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, h, kv, hd,
                                               causal, window):
     q, k, v = _attn_inputs([(b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)],
@@ -131,7 +135,11 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, h, kv, hd,
 @pytest.mark.parametrize("b,t,h,kv,hd,pos", [
     (4, 128, 4, 2, 64, [0, 5, 63, 127]), (2, 256, 4, 2, 64, 100),
     (3, 77, 9, 1, 128, [76, 200, 3]),
-    (8, 4096, 36, 4, 128, [1100, 1110, 1120, 1130, 3040, 3041, 3047, 0])])
+    (8, 4096, 36, 4, 128, [1100, 1110, 1120, 1130, 3040, 3041, 3047, 0]),
+    # n_rep 16 at hd 128 and 32 at hd 64 (two M tiles of the bf16
+    # kernel's products), and pos on the 256-slot split edge
+    (2, 1024, 16, 1, 128, [0, 1023]), (2, 512, 32, 1, 64, [100, 511]),
+    (3, 4096, 36, 4, 128, [255, 256, 257])])
 def test_decode_attention_kernel_matches_plain(dev, dtype, b, t, h, kv, hd,
                                                pos):
     q, k, v = _attn_inputs([(b, 1, h, hd), (b, t, kv, hd), (b, t, kv, hd)],
@@ -145,6 +153,57 @@ def test_decode_attention_kernel_matches_plain(dev, dtype, b, t, h, kv, hd,
     want = dec.decode_attention_plain(q, k, v, pos)
     assert (out.float() - want.float()).abs().max().item() <= \
         ATTN_ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_row_without_a_slot_is_zero(dev, dtype):
+    """A row with pos < 0 attends to nothing and returns zeros (the plain
+    version would return the mean of V there), at the main shape, where
+    the other row's slots span several splits."""
+    q, k, v = _attn_inputs([(2, 1, 36, 128), (2, 4096, 4, 128),
+                            (2, 4096, 4, 128)], dtype, 7, dev)
+    pos = torch.tensor([-1, 100], dtype=torch.int32, device=dev)
+    out = ops.decode_attention(q, k, v, pos)
+    want = dec.decode_attention_plain(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(out[0]).item() == 0
+    assert (out[1].float() - want[1].float()).abs().max().item() <= \
+        ATTN_ATOL[dtype]
+
+
+def test_decode_attention_in_a_cuda_graph_and_on_two_streams(dev):
+    """The bf16 kernel's split counters belong to the call: a captured
+    graph still replays right after an eager call at a larger B·KV, and
+    calls on two streams at once each match their plain version."""
+    pos = torch.tensor([1100, 3050], dtype=torch.int32, device=dev)
+    q, k, v = _attn_inputs([(2, 1, 36, 128), (2, 4096, 4, 128),
+                            (2, 4096, 4, 128)], torch.bfloat16, 5, dev)
+    first = ops.decode_attention(q, k, v, pos)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = ops.decode_attention(q, k, v, pos)
+    pos8 = torch.tensor([4095, 3000, 2048, 1500, 700, 300, 64, 4095],
+                        dtype=torch.int32, device=dev)
+    q8, k8, v8 = _attn_inputs([(8, 1, 64, 128), (8, 4096, 16, 128),
+                               (8, 4096, 16, 128)], torch.bfloat16, 6, dev)
+    wide = ops.decode_attention(q8, k8, v8, pos8)
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+    assert (wide.float() - dec.decode_attention_plain(q8, k8, v8, pos8)
+            .float()).abs().max().item() <= ATTN_ATOL[torch.bfloat16]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for st, args in zip(streams, [(q, k, v, pos), (q8, k8, v8, pos8)]):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            outs.append([ops.decode_attention(*args) for _ in range(20)])
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs[0])
+    assert all(torch.equal(o, wide) for o in outs[1])
 
 
 def test_serving_path_runs_the_attention_kernels(dev):

@@ -14,9 +14,12 @@ Phases, each of which fails the run on any mismatch:
                 a row of pos -1 (zeros); times of calls made one by one
                 with CUDA events (for `decode_attention`, whose calls the
                 host paces, also the device time over a CUDA graph of 50
-                calls, as `graph_ms`), the bound the card's rates allow,
-                and for the attention kernels the time of PyTorch's
-                `scaled_dot_product_attention` on the same inputs
+                calls, as `graph_ms`), the bound the card's rates allow
+                (for ssd_chunk on the tensor cores, as it splits its
+                products, beside the fp32 CUDA-core figure), and for the
+                attention kernels the time of PyTorch's
+                `scaled_dot_product_attention` on the same inputs;
+                ssd_chunk's main shape is also held to 1e-5
   4. decision   a 4096-tenant mixed fleet runs 16 rounds on the card; from
                 its state one `_tenant_act` runs on the card (kernels) and
                 on the CPU (plain versions) with the same keys
@@ -86,6 +89,7 @@ SERVE_MAX_LEN = 4096
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
+TF32_OPS_PER_S = 495e12          # H100 SXM TF32 tensor cores, dense
 # tests/test_kernels.py's ATOL: fp32 sums in another order; bf16 output
 ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # per (row, head) output vector: max|out − want| <= ROW_RTOL · max|want| +
@@ -96,14 +100,23 @@ ROW_RTOL, ROW_ATOL = 1e-2, 1e-4
 # ssd_chunk: fp32 products in another order than the plain version's
 # einsums, over up to 256 + 128 terms; held to 1e-4 of the largest value
 SSD_RTOL = 1e-4
+# ...and at the main shape to 1e-5, which one TF32 pass (10 mantissa bits)
+# cannot meet: it shows that the fp32-operand products are split
+SSD_MAIN_RTOL = 1e-5
 # ssd_chunk's cases (label, B, NC, L, H, P, N, B/C dtype, acum slope or 0
-# for the model's decay); "main" is the SSM prefill of 4 prompts of 2,048
-# tokens at Mamba2-780M's width
-SSD_CASES = [("main", 4, 8, 256, 48, 64, 128, torch.bfloat16, 0.0),
-             ("L100", 1, 1, 100, 48, 64, 128, torch.bfloat16, 0.0),
-             ("B1", 1, 8, 256, 48, 64, 128, torch.bfloat16, 0.0),
-             ("steep", 2, 2, 256, 48, 64, 128, torch.bfloat16, 30.0),
-             ("reduced", 3, 2, 32, 16, 32, 16, torch.float32, 0.0)]
+# for the model's decay, scale of B/C, scale of xd); "main" is the SSM
+# prefill of 4 prompts of 2,048 tokens at Mamba2-780M's width
+SSD_CASES = [("main", 4, 8, 256, 48, 64, 128, torch.bfloat16, 0.0, 1, 1),
+             ("L100", 1, 1, 100, 48, 64, 128, torch.bfloat16, 0.0, 1, 1),
+             ("B1", 1, 8, 256, 48, 64, 128, torch.bfloat16, 0.0, 1, 1),
+             ("steep", 2, 2, 256, 48, 64, 128, torch.bfloat16, 30.0, 1, 1),
+             ("reduced", 3, 2, 32, 16, 32, 16, torch.float32, 0.0, 1, 1),
+             ("L1", 2, 3, 1, 48, 64, 128, torch.bfloat16, 0.0, 1, 1),
+             ("L37", 2, 1, 37, 48, 64, 128, torch.bfloat16, 0.0, 1, 1),
+             ("P16", 2, 2, 256, 24, 16, 128, torch.bfloat16, 0.0, 1, 1),
+             ("P32", 2, 2, 256, 24, 32, 128, torch.bfloat16, 0.0, 1, 1),
+             ("range", 2, 4, 256, 48, 64, 128, torch.bfloat16, 0.0, 1e2,
+              1e-3)]
 
 
 def fail(msg: str) -> None:
@@ -197,6 +210,22 @@ def ssd_cost(xd, bm):
               + 2 * bm.element_size() * b * nc * l * n)
     ops = float(b * nc) * (l * l * n + l * l * p * h + 2 * l * n * p * h)
     return nbytes, ops
+
+
+def ssd_tensor_ops(xd, bm) -> float:
+    """`ssd_cost`'s operations as the kernel runs them on the tensor cores,
+    in TF32 operations: the scores product in three TF32 passes; the state
+    product in two when B is bf16 (exact in TF32), else three; C Bᵀ in one
+    bf16 pass (at 989/495 of the TF32 cost) when B/C are bf16, else three
+    TF32 passes."""
+    b, nc, l, h, p = xd.shape
+    n = bm.shape[-1]
+    cb = float(b * nc) * l * l * n
+    scores = float(b * nc) * l * l * p * h
+    state = float(b * nc) * 2 * l * n * p * h
+    if bm.dtype == torch.bfloat16:
+        return cb * TF32_OPS_PER_S / BF16_OPS_PER_S + 3 * scores + 2 * state
+    return 3 * (cb + scores + state)
 
 
 def awc_cost(b: int, k: int, g: int):
@@ -528,10 +557,9 @@ def phase_profile(pool, dev, cfg, state, rounds: int) -> None:
         pool, cfg, T=rounds, state=state, device=dev))
 
 
-def device_trace(tag: str, unit: str, n: int, fn, top: int = 8) -> None:
-    """Run ``fn`` (n units of work) under `torch.profiler` and print the
-    wall time per unit (profiler on), the device's busy time and idle
-    share, the kernels per unit, and the ``top`` kernels by device time."""
+def device_profile(fn):
+    """Run ``fn`` under `torch.profiler`; returns (wall ms with the
+    profiler on, the `key_averages()` entries of the device's kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -541,8 +569,15 @@ def device_trace(tag: str, unit: str, n: int, fn, top: int = 8) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    return wall_ms, [e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA]
+
+
+def device_trace(tag: str, unit: str, n: int, fn, top: int = 8) -> None:
+    """Run ``fn`` (n units of work) under `torch.profiler` and print the
+    wall time per unit (profiler on), the device's busy time and idle
+    share, the kernels per unit, and the ``top`` kernels by device time."""
+    wall_ms, kernels = device_profile(fn)
     busy_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
     print(f"{tag}: {unit} x {n} traced: wall {wall_ms / n:.2f} ms/{unit} "
@@ -770,16 +805,18 @@ def flash_pad_route(ops, fa, q, k, v, window) -> None:
 
 def phase_ssd_kernel(ops, dev):
     """ssd_chunk against its plain version at the SSM prefill's shape and
-    at ragged, single-row, steep-decay and reduced ones; returns its
+    at ragged (L 100, 37, 1), single-row, steep-decay, narrow-head (P 16,
+    32), wide-range (B/C ×1e2, xd ×1e-3) and reduced ones; returns its
     measurements at the main shape."""
     import torch.nn.functional as F
     from repro_torch.kernels import ssd_scan as ssd
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def inputs(b, nc, l, h, p, n, bc_dtype, slope):
+    def inputs(b, nc, l, h, p, n, bc_dtype, slope, bc_scale):
         """As `ssd_chunked` forms them: xd = x·dt, acum the cumulative sum
         of dt·a (dt a softplus, a = -exp(·) per head, or -slope·U(0, 1)
-        when ``slope`` is set), bm/cm views into one wider conv output."""
+        when ``slope`` is set), bm/cm views into one wider conv output of
+        N(0, bc_scale²) values."""
         x = torch.randn((b, nc, l, h, p), generator=gen, device=dev)
         dt = F.softplus(torch.randn((b, nc, l, h), generator=gen,
                                     device=dev))
@@ -790,15 +827,19 @@ def phase_ssd_kernel(ops, dev):
             a = -torch.exp(0.5 * torch.randn((h,), generator=gen,
                                              device=dev))
             da = dt * a
-        wide = torch.randn((b, nc * l, 2 * n + 64), generator=gen,
-                           device=dev).to(bc_dtype)
+        wide = (bc_scale * torch.randn((b, nc * l, 2 * n + 64),
+                                       generator=gen, device=dev)
+                ).to(bc_dtype)
         return ((x * dt[..., None]).contiguous(), torch.cumsum(da, dim=2),
                 wide[..., 64:64 + n].reshape(b, nc, l, n),
                 wide[..., 64 + n:].reshape(b, nc, l, n))
 
     worst, main = 0.0, None
-    for label, b, nc, l, h, p, n, bc_dtype, slope in SSD_CASES:
-        args = inputs(b, nc, l, h, p, n, bc_dtype, slope)
+    for (label, b, nc, l, h, p, n, bc_dtype, slope, bc_scale,
+         x_scale) in SSD_CASES:
+        xd, acum, bm, cm = inputs(b, nc, l, h, p, n, bc_dtype, slope,
+                                  bc_scale)
+        args = (xd * x_scale, acum, bm, cm)
         y, st = ops.ssd_chunk(*args)
         wy, wst = ssd.ssd_chunk_plain(*args)
         torch.cuda.synchronize()
@@ -809,19 +850,28 @@ def phase_ssd_kernel(ops, dev):
         err = max((y - wy).abs().max().item(), (st - wst).abs().max().item())
         worst = max(worst, err)
         print(f"ssd_chunk {label:7s} B={b} NC={nc} L={l} H={h} P={p} N={n} "
-              f"B/C {bc_dtype}: max|diff| {err:.3g}, relative {rel:.3g}",
-              flush=True)
+              f"B/C {bc_dtype} x{bc_scale:g}, xd x{x_scale:g}: max|diff| "
+              f"{err:.3g}, relative {rel:.3g}", flush=True)
         if not rel <= SSD_RTOL:
             fail(f"ssd_chunk {label}: relative max|diff| {rel:.3g} > "
                  f"{SSD_RTOL}")
         if label == "main":
+            if not rel <= SSD_MAIN_RTOL:
+                fail(f"ssd_chunk main: relative max|diff| {rel:.3g} > "
+                     f"{SSD_MAIN_RTOL}")
             ms = cuda_ms(lambda: ops.ssd_chunk(*args))
             plain_ms = cuda_ms(lambda: ssd.ssd_chunk_plain(*args), iters=5)
-            b_ms, b_by = bound(*ssd_cost(args[0], args[2]))
+            nbytes, nops = ssd_cost(args[0], args[2])
+            b_ms, b_by = bound(nbytes, ssd_tensor_ops(args[0], args[2]),
+                               TF32_OPS_PER_S)
+            core_ms, _ = bound(nbytes, nops)
             main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None)
+                        bound_by=b_by, library_ms=None,
+                        bound_cuda_core_ms=core_ms)
             print(f"ssd_chunk main: kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
-                  f"bound={b_ms:.5f}ms ({b_by}); no single PyTorch call "
+                  f"bound={b_ms:.5f}ms ({b_by}; tensor cores: bf16 C Bᵀ, "
+                  f"split TF32 products), {core_ms:.5f}ms with every "
+                  "product on fp32 CUDA cores; no single PyTorch call "
                   "computes it", flush=True)
     return {"ssd_chunk": dict(max_abs_err=worst, **main)}
 

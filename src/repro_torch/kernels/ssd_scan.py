@@ -12,25 +12,49 @@ as y (B, NC, L, H, P) and states (B, NC, H, P, N). The decay is selected,
 never multiplied, to zero above the diagonal: exp(acum_i − acum_j) for
 j > i can be inf, and inf · 0 would be NaN.
 
-Bound on the H100: operations. The serving prefill (4 prompts of 2,048
-tokens at Mamba2-780M's width: NC 8, L 256, H 48, P 64, N 128) counts C Bᵀ
-once per chunk and the two L×L products over their causal half,
-B·NC·(L²·N + L²·P·H + 2·L·N·P·H) ≈ 13.2 GFLOP, ~0.20 ms at 67 TFLOP/s fp32,
-against ~0.26 GB of inputs and outputs (~0.08 ms at 3.35 TB/s). The
-products stay in fp32 on the CUDA cores: TF32 would round them to 10
-mantissa bits and lose parity with the plain version.
+Bound on the H100 (`csrc/ssd_scan.cu`): bytes, on the tensor cores. The
+serving prefill (4 prompts of 2,048 tokens at Mamba2-780M's width: NC 8,
+L 256, H 48, P 64, N 128, B/C bf16) moves 0.257 GB (xd read, y and the
+states written: 0.077 ms at 3.35 TB/s) and counts C Bᵀ once per chunk and
+the two L×L products over their causal half, B·NC·(L²·N + L²·P·H +
+2·L·N·P·H) = 13.2 GFLOP: 0.196 ms at 67 TFLOP/s on fp32 CUDA cores, 0.065
+ms on the tensor cores as the kernel splits them (C Bᵀ at 989 TFLOP/s
+bf16, the scores product three TF32 passes and the state product two at
+495 TFLOP/s).
 
-Design (`csrc/ssd_scan.cu`): two kernels per launch. The first gives a
-block one 64-row tile of one chunk and 8 of its heads: it forms the tile's
-rows of C Bᵀ up to the diagonal once, in shared memory, and reuses them for
-each head, so C Bᵀ is not recomputed per head; each head's scores are that
-tile times its decay, then times xd, register-blocked 4×4 per thread. The
-second gives a block one head and 64 state columns of a chunk. xd and acum
-are read in place in their (…, L, H, …) layout (the Pallas wrapper copies H
-in front of L), bm/cm through their strides (they are views into the conv
-output), in their own dtype (bf16 or fp32, widened on load: no cast copy).
-Ragged L (a prompt shorter than the chunk) is bounded, not padded; L above
-256 raises. Head dims 16, 32 and 64 are built.
+Accuracy, product by product (all mma.sync, fp32 accumulate):
+
+- C Bᵀ from bf16 B/C: one bf16 pass. A product of two bf16 values has at
+  most 16 significant bits, so it is exact in fp32, as in the plain
+  version; only the order of the sum differs.
+- The scores product (C Bᵀ ⊙ exp(acum_i − acum_j)) @ xd has fp32 operands:
+  3xTF32. a = a_hi + a_lo, a_hi rounded to TF32, and a·b ≈ a_hi·b_hi +
+  a_hi·b_lo + a_lo·b_hi, ~2^-21 of each product. One TF32 pass keeps 10
+  mantissa bits, ~1e-3 of a 256-term sum of mixed signs, and fails the
+  1e-4 gate this kernel is held to.
+- The state product Bᵀ @ (exp(atot − acum) ⊙ xd): the weighted xd is
+  formed in fp32, as in the plain version, and split in two; bf16 B is
+  exact in TF32, so two passes suffice.
+- The decay and the state weights are the SFU's exp (ex2.approx, as
+  `__expf`), ~1e-7 of each term that matters.
+- fp32 B/C (the reduced configurations) are split as well: three passes
+  for C Bᵀ and for the state product.
+
+Design: one launch, one block of 8 warps per (chunk, group of heads), one
+block an SM, the heads a block chosen so that the waves of blocks times
+the heads a block are fewest (12 heads, 128 blocks at the main shape). B
+rows are copied to shared memory once
+a block and C rows into registers once a warp (both head-free); each head's
+xd rows arrive by cp.async in a double buffer and feed both products, so xd
+is read from device memory once. The y product takes C Bᵀ's accumulator
+fragments as its A operand (the k index permuted to match), so the scores
+never go through shared memory; C Bᵀ is recomputed per head on the tensor
+cores rather than kept (a chunk's is 256 KB in fp32). xd and acum are read
+in place in their (…, L, H, …) layout; bm/cm through their strides, in
+their own dtype (no cast copy), which must be multiples of 16 bytes from a
+16-byte aligned base (`check_inputs`; the model's B/C views into the conv
+output meet it). Ragged L is bounded, not padded; L above 256 and N above
+128 raise. Head dims 16, 32 and 64 are built.
 """
 from __future__ import annotations
 
@@ -45,8 +69,10 @@ REPLACES = "src/repro/kernels/ssd_scan.py:49"
 ENTRY = "ssd_chunk_launch"
 ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
             + [ctypes.c_longlong] * 6 + [ctypes.c_void_p])
-MAX_L = 256             # rows of C Bᵀ a block keeps in shared memory
+MAX_L = 256             # chunk rows a block keeps in shared memory
+MAX_N = 128             # state columns (N padded to 64 or 128 in the build)
 HEAD_DIMS = (16, 32, 64)     # the reference tests', reduced and full P
+BC_ALIGN = 16           # bytes: bm/cm base and strides, for cp.async
 BC_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -70,8 +96,9 @@ def ssd_chunk_plain(xd, acum, bm, cm):
 def check_inputs(xd, acum, bm, cm) -> None:
     """What the kernel takes: xd (B,NC,L,H,P) and acum (B,NC,L,H) float32,
     contiguous; bm/cm (B,NC,L,N) of one dtype (float32 or bfloat16) whose
-    last dim is contiguous; all on one device; 1 <= L <= MAX_L, a built
-    head dim, N >= 1."""
+    last dim is contiguous and whose base and other strides are multiples
+    of BC_ALIGN bytes; all on one device; 1 <= L <= MAX_L, a built head
+    dim, 1 <= N <= MAX_N."""
     if xd.dim() != 5:
         raise ValueError(f"ssd_chunk: xd must be (B,NC,L,H,P), got "
                          f"{tuple(xd.shape)}")
@@ -99,18 +126,28 @@ def check_inputs(xd, acum, bm, cm) -> None:
                         f"bfloat16, got {bm.dtype}, {cm.dtype}")
     if bm.stride(3) != 1 or cm.stride(3) != 1:
         raise ValueError("ssd_chunk: bm and cm must be contiguous along N")
+    for name, t in (("bm", bm), ("cm", cm)):
+        size = t.element_size()
+        if t.data_ptr() % BC_ALIGN or any(
+                st * size % BC_ALIGN for st in t.stride()[:3]):
+            raise ValueError(
+                f"ssd_chunk: {name} needs a {BC_ALIGN}-byte aligned base and "
+                f"strides (B, NC, L) that are multiples of {BC_ALIGN} bytes "
+                f"({BC_ALIGN // size} elements), got offset "
+                f"{t.data_ptr() % BC_ALIGN} bytes, strides {t.stride()[:3]}")
     if not 1 <= l <= MAX_L:
         raise ValueError(f"ssd_chunk is built for chunks of 1..{MAX_L} "
                          f"rows, got {l}")
     if p not in HEAD_DIMS:
         raise ValueError(f"ssd_chunk is built for head dims {HEAD_DIMS}, "
                          f"got {p}")
-    if n < 1:
-        raise ValueError("ssd_chunk: the state has no columns (N = 0)")
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"ssd_chunk is built for states of 1..{MAX_N} "
+                         f"columns, got N = {n}")
 
 
 def ssd_chunk_cuda(lib, xd, acum, bm, cm):
-    """Launch the kernels on the current stream; see `check_inputs`."""
+    """Launch the kernel on the current stream; see `check_inputs`."""
     check_inputs(xd, acum, bm, cm)
     b, nc, l, h, p = xd.shape
     n = bm.shape[3]

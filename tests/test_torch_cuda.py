@@ -230,14 +230,30 @@ def test_serving_path_runs_the_attention_kernels(dev):
 SSD_RTOL = 1e-4
 
 
-def ssd_inputs(b, nc, l, h, p, n, bc_dtype, slope, seed, dev):
-    """xd, acum as the model forms them; bm/cm as views into one wider
-    (B, S, 2N + 8) tensor, like the conv output they are cut from."""
+# ...and at the main shape to 1e-5, which one TF32 pass cannot meet
+SSD_MAIN_RTOL = 1e-5
+
+
+def ssd_inputs(b, nc, l, h, p, n, bc_dtype, slope, seed, dev, bc_scale=1.0,
+               x_scale=1.0):
+    """xd, acum as the model forms them (slope 0: the model's own decay,
+    dt·a with dt a softplus and a = -exp(·) per head, xd = x·dt; else
+    -slope·U(0, 1) a step); bm/cm as views into one wider (B, S, 2N + 8)
+    tensor of N(0, bc_scale²) values, like the conv output they are cut
+    from; xd scaled by x_scale."""
     g = torch.Generator().manual_seed(seed)
     xd = torch.randn((b, nc, l, h, p), generator=g)
-    da = -slope * torch.rand((b, nc, l, h), generator=g)
+    if slope:
+        da = -slope * torch.rand((b, nc, l, h), generator=g)
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, nc, l, h), generator=g))
+        da = dt * -torch.exp(0.5 * torch.randn((h,), generator=g))
+        xd = xd * dt[..., None]
+    xd = xd * x_scale
     acum = torch.cumsum(da, dim=2)
-    wide = torch.randn((b, nc * l, 2 * n + 8), generator=g).to(bc_dtype)
+    wide = (bc_scale * torch.randn((b, nc * l, 2 * n + 8), generator=g)
+            ).to(bc_dtype)
     wide = wide.to(dev)
     bm = wide[..., 8:8 + n].reshape(b, nc, l, n)
     cm = wide[..., 8 + n:].reshape(b, nc, l, n)
@@ -250,7 +266,12 @@ def ssd_inputs(b, nc, l, h, p, n, bc_dtype, slope, seed, dev):
     (1, 1, 128, 8, 64, 64, torch.float32, 0.1),
     (1, 1, 100, 48, 64, 128, torch.bfloat16, 2.0),      # ragged L
     (2, 3, 256, 12, 64, 40, torch.float32, 30.0),       # steep decay
-    (4, 8, 256, 48, 64, 128, torch.bfloat16, 2.0)])     # the serving shape
+    (4, 8, 256, 48, 64, 128, torch.bfloat16, 2.0),      # the serving shape
+    (4, 8, 256, 48, 64, 128, torch.bfloat16, 0.0),      # ...model's decay
+    (2, 3, 1, 48, 64, 128, torch.bfloat16, 0.0),        # L = 1
+    (2, 1, 37, 48, 64, 128, torch.bfloat16, 0.0),       # ragged L = 37
+    (2, 2, 256, 24, 16, 128, torch.bfloat16, 2.0),      # P = 16
+    (2, 2, 256, 24, 32, 128, torch.bfloat16, 2.0)])     # P = 32
 def test_ssd_chunk_kernel_matches_plain(dev, b, nc, l, h, p, n, bc_dtype,
                                         slope):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -265,6 +286,36 @@ def test_ssd_chunk_kernel_matches_plain(dev, b, nc, l, h, p, n, bc_dtype,
         assert torch.isfinite(got).all()
         err = (got - want).abs().max().item()
         assert err <= SSD_RTOL * want.abs().max().item(), err
+
+
+def _ssd_rel_err(args):
+    """Largest |kernel − plain| of y and of the states, each over its
+    largest |plain| value."""
+    y, st = ops.ssd_chunk(*args)
+    wy, wst = ssd.ssd_chunk_plain(*args)
+    torch.cuda.synchronize()
+    for got in (y, st):
+        assert torch.isfinite(got).all()
+    return max(((got - want).abs().max() / want.abs().max()).item()
+               for got, want in ((y, wy), (st, wst)))
+
+
+def test_ssd_chunk_keeps_a_wide_range(dev):
+    """B/C ×1e2 and xd ×1e-3: the split products keep their relative
+    accuracy across the operands' range."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = ssd_inputs(2, 4, 256, 48, 64, 128, torch.bfloat16, 0.0, 7, dev,
+                      bc_scale=1e2, x_scale=1e-3)
+    assert _ssd_rel_err(args) <= SSD_RTOL
+
+
+def test_ssd_chunk_main_shape_within_1e5(dev):
+    """At the serving shape with the model's decay, 1e-5 of the largest
+    value: fp32 accuracy, which one TF32 pass (10 mantissa bits) of the
+    fp32-operand products cannot give."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = ssd_inputs(4, 8, 256, 48, 64, 128, torch.bfloat16, 0.0, 3, dev)
+    assert _ssd_rel_err(args) <= SSD_MAIN_RTOL
 
 
 def test_ssd_chunk_rejects_what_it_does_not_take(dev):

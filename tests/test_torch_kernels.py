@@ -203,3 +203,70 @@ def test_kernel_sources_and_build_flags():
         assert "pl.pallas_call" in body
     assert "arch=compute_90a,code=sm_90a" in ops.NVCC_FLAGS
     assert ops.BUILD_DIR.parts[-2:] == ("build", "kernels")
+
+
+# ============================================================ ssd_chunk
+def test_ssd_chunk_products_run_on_the_tensor_cores():
+    """One kernel: bf16 C Bᵀ by an m16n8k16 mma, the fp32-operand products
+    by m16n8k8 TF32 mmas on split operands; no CUDA-core product loops."""
+    src = ssd.SOURCE.read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    assert src.count("__global__") == 1
+    assert "fmaf(" not in src
+
+
+def test_ssd_cost_counts_the_main_shape():
+    """`chip_smoke.ssd_cost` and the tensor-core bound at the SSM prefill's
+    shape (B 4, NC 8, L 256, H 48, P 64, N 128, B/C bf16), counted by hand:
+    bytes 4·(2·25,165,824 + 393,216 + 12,582,912) + 2·2·1,048,576;
+    operations 32·(256²·128 + 256²·64·48 + 2·256·128·64·48)."""
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    xd = torch.empty((4, 8, 256, 48, 64), device="meta")
+    bm = torch.empty((4, 8, 256, 128), dtype=torch.bfloat16, device="meta")
+    nbytes, nops = smoke.ssd_cost(xd, bm)
+    assert nbytes == 257_425_408
+    assert nops == 13_153_337_344
+    # fp32 CUDA cores: operations, 13.15 GFLOP at 67 TFLOP/s
+    ms, by = smoke.bound(nbytes, nops)
+    assert by == "operations" and ms == pytest.approx(0.196318, rel=1e-5)
+    # tensor cores: C Bᵀ 268,435,456 at 989 TFLOP/s; the scores product
+    # 6,442,450,944 three times and the state product 6,442,450,944 twice
+    # at 495: 0.06534 ms, under the 0.07684 ms the bytes take
+    tops = smoke.ssd_tensor_ops(xd, bm)
+    assert tops == pytest.approx(
+        268_435_456 * 495 / 989 + 5 * 6_442_450_944, rel=1e-12)
+    ms, by = smoke.bound(nbytes, tops, smoke.TF32_OPS_PER_S)
+    assert by == "bytes" and ms == pytest.approx(0.076843, rel=1e-4)
+    assert tops / smoke.TF32_OPS_PER_S * 1e3 == pytest.approx(0.065342,
+                                                            rel=1e-4)
+    # fp32 B/C: every product in three TF32 passes
+    bm32 = torch.empty((4, 8, 256, 128), device="meta")
+    assert smoke.ssd_tensor_ops(xd, bm32) == 3 * nops
+
+
+def test_ssd_check_inputs_states_alignment_and_width():
+    """The kernel copies B/C rows with 16-byte cp.async: their base and
+    strides must be multiples of 16 bytes, and N at most MAX_N; the
+    model's views (row stride 3,328 bf16, offsets 3,072 and 3,200) pass."""
+    def views(width, off, n, dtype=torch.bfloat16, l=32):
+        wide = torch.zeros((1, 2 * l, width), dtype=dtype)
+        return (wide[..., off:off + n].reshape(1, 2, l, n),
+                wide[..., off + n:off + 2 * n].reshape(1, 2, l, n))
+    xd = torch.zeros((1, 2, 32, 4, 64))
+    acum = torch.zeros((1, 2, 32, 4))
+    ssd.check_inputs(xd, acum, *views(3328, 3072, 128)[::-1])
+    ssd.check_inputs(xd, acum, *views(3328, 3072, 128))
+    ssd.check_inputs(xd, acum, *views(544, 512, 16, torch.float32))
+    with pytest.raises(ValueError, match="16-byte aligned base"):
+        ssd.check_inputs(xd, acum, *views(3328, 3071, 128))
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        ssd.check_inputs(xd, acum, *views(3330, 3072, 128))
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        ssd.check_inputs(xd, acum, *views(546, 512, 16, torch.float32))
+    with pytest.raises(ValueError, match="states of 1..128"):
+        ssd.check_inputs(xd, acum, *views(3328, 2816, 256))

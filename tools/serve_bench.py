@@ -1,17 +1,22 @@
-"""Dense prefill and decode of the port's serving path on one GPU.
+"""Prefill and decode of the port's serving path on one GPU.
 
-    python3 tools/serve_bench.py prefill [--tree DIR]
+    python3 tools/serve_bench.py prefill [--arch ARCH] [--tree DIR]
     python3 tools/serve_bench.py decode [--tree DIR]
 
-Both serve StarCoder2-7B at full width (bf16 weights from `init_params`,
-seed 0), as `chip_smoke.py`'s serving phase does.
+Both serve a model at full width (bf16 weights from `init_params`, seed
+0), as `chip_smoke.py`'s serving phases do: StarCoder2-7B, or for prefill
+`--arch mamba2-780m`.
 
 prefill: times `Engine.prefill` on 4 prompts of each length on the host's
 clock: one untimed prefill at that length first (the allocator's growth to
 the length's activations, the first launches at its shapes), then 5 timed
-ones, at the lengths of `chip_smoke.py`'s dense prefills. One JSON line
-per length: every timed prefill's prompt tokens/s, their median, and the
-`flash_attention` launches counted over the timed prefills.
+ones, at the lengths of `chip_smoke.py`'s prefills for the model (dense
+1,024 / 2,048 / 3,000; Mamba2 1,024 / 2,048 / 3,072). Then one prefill
+under `torch.profiler`. One JSON line per length: every timed prefill's
+prompt tokens/s, their median, the model's kernel launches counted over
+the timed prefills (`flash_attention` or `ssd_chunk`), and from the traced
+prefill the device's busy ms and the device ms of each kernel whose name
+holds the model kernel's prefix ("flash_" or "ssd_").
 
 decode: a bf16 decode cache of 8 rows x 4,096 slots filled with N(0, 1)
 values (seed 0), at `chip_smoke.py`'s main decode positions (4 rows near
@@ -44,7 +49,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-LENS = (1024, 2048, 3000)        # prefill: prompt lengths, 4 prompts each
+# prefill: per model, the prompt lengths (4 prompts each), the kernel it
+# launches, and that kernel's name prefix in a profiler trace
+PREFILL = {"starcoder2-7b": ((1024, 2048, 3000), "flash_attention", "flash_"),
+           "mamba2-780m": ((1024, 2048, 3072), "ssd_chunk", "ssd_")}
 REPS = 5                         # prefill: timed prefills per length
 POS = [1100, 1110, 1120, 1130, 3040, 3041, 3047, 3055]   # decode rows
 STEPS = 20                       # decode: timed steps
@@ -52,12 +60,14 @@ TRACED = 3                       # decode: steps under the profiler
 
 
 def bench_prefill(tree, cfg, params, dev, ops, M) -> None:
+    from chip_smoke import device_profile
     from repro_torch.serving.engine import Engine
+    lens, kernel, prefix = PREFILL[cfg.name]
     eng = Engine(cfg, params, max_len=4096, temperature=0.7,
                  dtype=torch.bfloat16, device=dev)
     rng = np.random.default_rng(0)
     eng.generate(rng.integers(0, cfg.vocab, (1, 64)), 2)
-    for plen in LENS:
+    for plen in lens:
         prompts = rng.integers(0, cfg.vocab, (4, plen))
         eng.prefill(prompts)
         torch.cuda.synchronize()
@@ -71,19 +81,22 @@ def bench_prefill(tree, cfg, params, dev, ops, M) -> None:
             if not torch.isfinite(lg).all():
                 sys.exit(f"serve_bench: non-finite logits at {plen}")
             del lg
+        launches = ops.LAUNCHES[kernel]
+        _, traced = device_profile(lambda: eng.prefill(prompts))
         print(json.dumps({
-            "tree": str(tree), "prompts": 4, "len": plen,
+            "tree": str(tree), "arch": cfg.name, "prompts": 4, "len": plen,
             "tokens_per_s": [round(x, 1) for x in tps],
             "median": round(float(np.median(tps)), 1),
-            "flash_attention_launches": ops.LAUNCHES["flash_attention"]}),
-            flush=True)
+            f"{kernel}_launches": launches,
+            "traced_busy_ms": round(
+                sum(e.self_device_time_total for e in traced) / 1e3, 4),
+            "traced_kernel_ms": {
+                e.key: round(e.self_device_time_total / 1e3, 4)
+                for e in traced if prefix in e.key}}), flush=True)
 
 
 def bench_decode(tree, cfg, params, dev, ops, M) -> None:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from chip_smoke import cuda_ms, graph_ms
+    from chip_smoke import cuda_ms, device_profile, graph_ms
     cache = M.init_decode_caches(cfg, len(POS), 4096, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     for x in cache["attn"].values():
@@ -105,13 +118,7 @@ def bench_decode(tree, cfg, params, dev, ops, M) -> None:
     step_ms = (time.perf_counter() - t0) * 1e3 / STEPS
     launches = ops.LAUNCHES["decode_attention"]
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(TRACED):
-            step()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    _, kernels = device_profile(lambda: [step() for _ in range(TRACED)])
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / TRACED
     dec = sum(e.self_device_time_total for e in kernels
               if "decode_" in e.key) / 1e3 / TRACED
@@ -138,8 +145,12 @@ def bench_decode(tree, cfg, params, dev, ops, M) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("mode", choices=("prefill", "decode"))
+    ap.add_argument("--arch", choices=tuple(PREFILL), default="starcoder2-7b",
+                    help="the model (prefill only; decode is StarCoder2-7B)")
     ap.add_argument("--tree", default=str(ROOT))
     args = ap.parse_args()
+    if args.mode == "decode" and args.arch != "starcoder2-7b":
+        ap.error("decode serves starcoder2-7b only")
     if not torch.cuda.is_available():
         sys.exit("serve_bench: no CUDA device")
     tree = Path(args.tree).resolve()
@@ -157,7 +168,7 @@ def main() -> None:
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     dev = torch.device("cuda", 0)
-    cfg = get_config("starcoder2-7b")
+    cfg = get_config(args.arch)
     params = M.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     bench = bench_prefill if args.mode == "prefill" else bench_decode
     bench(tree, cfg, params, dev, ops, M)

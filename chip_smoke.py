@@ -11,10 +11,13 @@ Phases, each of which fails the run on any mismatch:
                 ssd_chunk) steep-decay cases, the attention kernels also
                 at head_dim 120 and 80 (`flash_attention`'s pad route) and
                 per (row, head) output vector, `decode_attention` also with
-                a row of pos -1 (zeros); times of calls made one by one
-                with CUDA events (for `decode_attention`, whose calls the
-                host paces, also the device time over a CUDA graph of 50
-                calls, as `graph_ms`), the bound the card's rates allow
+                a row of pos -1 (zeros); `topn_lp` and `awc_fw`'s costs
+                bit-equal to theirs; times of calls made one by one
+                with CUDA events (for `decode_attention` and the two fleet
+                kernels, whose calls the host paces, also the device time
+                over a CUDA graph of 50 calls, as `graph_ms`; `topn_lp` at
+                each of its three shapes in a fleet round), the bound the
+                card's rates allow
                 (for ssd_chunk on the tensor cores, as it splits its
                 products, beside the fp32 CUDA-core figure), and for the
                 attention kernels the time of PyTorch's
@@ -22,7 +25,10 @@ Phases, each of which fails the run on any mismatch:
                 ssd_chunk's main shape is also held to 1e-5
   4. decision   a 4096-tenant mixed fleet runs 16 rounds on the card; from
                 its state one `_tenant_act` runs on the card (kernels) and
-                on the CPU (plain versions) with the same keys
+                on the CPU (plain versions) with the same keys; the CPU's
+                thread count is printed, and the plain `awc_fw` must give
+                the same bits at 1 and 8 threads as the first call of a
+                fresh interpreter (F5)
   5. fleet      the main path: `simulate_fleet` on the card, 4096 tenants in
                 thirds of AWC, SUC and AIC on the paper's pool, 128 rounds;
                 launch counts must match the round structure
@@ -65,6 +71,7 @@ the repository beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -77,6 +84,16 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 FLEET_KERNELS = ("topn_lp", "awc_fw")    # the fleet loop's kernels
+# topn_lp's calls in a fleet round of 2,731 SUC/AIC and 1,365 AWC tenants:
+# (label, rows, K, equality) of the octave round (2,731 × 25 λ's), the
+# SUC/AIC mantissa rounds (2,731 × 64) and the AWC ones (1,365 × 64)
+TOPN_SHAPES = (("octave", 68275, 9, True), ("main", 174784, 9, True),
+               ("awc-grid", 87360, 9, False))
+# F5: the plain awc_fw's bits at 1 and 8 CPU threads, each its process's
+# first call: the fleet's AWC shape (B, K, G), and 200,000 rows of K = 9
+# (one λ, which keeps the plain version's (B, G, K, K) ranks small)
+F5_SHAPES = ((1365, 9, 25), (200000, 9, 1))
+F5_THREADS = (1, 8)
 TENANTS = 4096                   # the fleet: thirds of AWC, SUC, AIC
 ROUNDS = 128                     # fleet rounds (phase 5)
 DECISION_ROUNDS = 16             # rounds before the decision check (phase 4)
@@ -238,6 +255,87 @@ def awc_cost(b: int, k: int, g: int):
     return nbytes, ops
 
 
+def topn_rows(b: int, k: int, gen, dev):
+    """topn_lp's inputs as `relax._lagrangian_costs` forms them: per (w, c,
+    n) row a batch of probe λ's, GRID_POINTS of a mantissa round when b
+    allows, else the octave ladder 2^0..2^LAM_MAX_EXP when b allows, else
+    one. A mantissa λ is an octave 2^e times a dyadic mantissa from 0 or 1,
+    capped at 2^LAM_MAX_EXP, so most rows hold the large-λ regime where
+    every score is negative; c has zeros (an unexplored arm's LCB)."""
+    from repro_torch.core import relax
+    octave = relax.LAM_MAX_EXP + 1
+    g = (relax.GRID_POINTS if b % relax.GRID_POINTS == 0
+         else octave if b % octave == 0 else 1)
+    r = b // g
+    w = torch.rand((r, k), generator=gen)
+    c = torch.rand((r, k), generator=gen) * 0.8
+    c[::3, ::4] = 0.0
+    if g == octave:
+        lams = (2.0 ** torch.arange(float(octave))).expand(r, g)
+    else:
+        e = torch.randint(0, relax.LAM_MAX_EXP + 1, (r, 1), generator=gen)
+        m0 = torch.randint(0, 2, (r, 1), generator=gen).float()
+        lams = torch.minimum(2.0 ** e.float() * (m0 + torch.arange(g) / g),
+                             torch.tensor(2.0 ** relax.LAM_MAX_EXP))
+    score = (w[:, None, :] - lams[:, :, None] * c[:, None, :])
+    score = score.reshape(b, k)
+    score[::7, 1::2] = score[::7, :1]                 # exact ties
+    cost = c[:, None, :].expand(r, g, k).reshape(b, k)
+    n = torch.randint(1, k + 1, (r, 1), generator=gen, dtype=torch.int32)
+    n = n.expand(r, g).reshape(b)
+    return tuple(x.contiguous().to(dev) for x in (score, cost, n))
+
+
+def awc_rows(b: int, k: int, g: int, gen, dev):
+    """awc_fw's inputs as the FW loop gives them: z̃ in [0, 1), μ̄ with
+    clipped entries, c̲, and at G = 25 the octave ladder."""
+    z = torch.rand((b, k), generator=gen)
+    mu = 0.05 + 0.95 * torch.rand((b, k), generator=gen)
+    mu[::5, :2] = 1.0
+    c = 0.6 * torch.rand((b, k), generator=gen)
+    if g == 25:
+        lams = (2.0 ** torch.arange(25.0)).expand(b, g).contiguous()
+    else:
+        lams = 4 * torch.rand((b, g), generator=gen)
+    n = torch.randint(1, k + 1, (b,), generator=gen, dtype=torch.int32)
+    return tuple(x.to(dev) for x in (z, mu, c, lams, n))
+
+
+# the plain `awc_fw` in a fresh interpreter at a given CPU thread count:
+# the inputs from numpy (seed 0), the bits of g and costs as digests
+_AWC_PLAIN_BITS = """
+import hashlib, sys
+import numpy as np, torch
+b, k, g, threads = map(int, sys.argv[1:5])
+torch.set_num_threads(threads)
+from repro_torch.kernels.awc_fw import awc_fw_plain
+rng = np.random.default_rng(0)
+z = rng.uniform(size=(b, k)).astype(np.float32)
+mu = rng.uniform(0.05, 1.0, (b, k)).astype(np.float32)
+mu[::5, :2] = 1.0
+c = rng.uniform(0.0, 0.6, (b, k)).astype(np.float32)
+lams = np.broadcast_to(2.0 ** np.arange(g, dtype=np.float32), (b, g))
+n = rng.integers(1, k + 1, b).astype(np.int32)
+gk, costs = awc_fw_plain(*(torch.from_numpy(np.ascontiguousarray(x))
+                           for x in (z, mu, c, lams, n)))
+print(torch.get_num_threads(), hashlib.sha256(gk.numpy().tobytes()).hexdigest(),
+      hashlib.sha256(costs.numpy().tobytes()).hexdigest())
+"""
+
+
+def awc_plain_bits(b: int, k: int, g: int, threads: int):
+    """(threads used, digest of g, digest of costs) of `awc_fw_plain`'s
+    first call in a fresh interpreter with ``threads`` CPU threads."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in os.environ.get("PYTHONPATH", "")
+                               .split(os.pathsep) if p]))
+    out = subprocess.run([sys.executable, "-c", _AWC_PLAIN_BITS, str(b),
+                          str(k), str(g), str(threads)], capture_output=True,
+                         text=True, timeout=300, env=env, check=True)
+    used, g_bits, c_bits = out.stdout.split()
+    return int(used), g_bits, c_bits
+
+
 # ====================================================================== phases
 def phase_card() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -263,80 +361,53 @@ def phase_build(ops) -> None:
 
 def phase_kernels(ops, topn, awc, dev):
     """Kernel against plain version; returns per-kernel measurements."""
-    from repro_torch.core import relax
     gen = torch.Generator().manual_seed(0)
     results = {}
 
-    # ---- topn_lp: score rows w − λc as the solver forms them
-    def topn_rows(b, k):
-        """As `relax._lagrangian_costs` forms them: per (w, c, n) row a
-        batch of GRID_POINTS probe λ's when b allows (a mantissa round),
-        else one. λ is an octave 2^e times a dyadic mantissa from 0 or 1,
-        capped at 2^LAM_MAX_EXP, so most rows hold the large-λ regime where
-        every score is negative; c has zeros (an unexplored arm's LCB)."""
-        g = relax.GRID_POINTS if b % relax.GRID_POINTS == 0 else 1
-        r = b // g
-        w = torch.rand((r, k), generator=gen)
-        c = torch.rand((r, k), generator=gen) * 0.8
-        c[::3, ::4] = 0.0
-        e = torch.randint(0, relax.LAM_MAX_EXP + 1, (r, 1), generator=gen)
-        m0 = torch.randint(0, 2, (r, 1), generator=gen).float()
-        lams = torch.minimum(2.0 ** e.float() * (m0 + torch.arange(g) / g),
-                             torch.tensor(2.0 ** relax.LAM_MAX_EXP))
-        score = (w[:, None, :] - lams[:, :, None] * c[:, None, :])
-        score = score.reshape(b, k)
-        score[::7, 1::2] = score[::7, :1]                 # exact ties
-        cost = c[:, None, :].expand(r, g, k).reshape(b, k)
-        n = torch.randint(1, k + 1, (r, 1), generator=gen, dtype=torch.int32)
-        n = n.expand(r, g).reshape(b)
-        return tuple(x.contiguous().to(dev) for x in (score, cost, n))
-
-    cases = [("main", 174784, 9), ("B512K9", 512, 9), ("B4096K9", 4096, 9),
-             ("B1024K128", 1024, 128), ("K130", 5, 130), ("B33", 33, 40)]
+    cases = [(label, b, k) for label, b, k, _ in TOPN_SHAPES] + [
+        ("B512K9", 512, 9), ("B4096K9", 4096, 9), ("K17", 255, 17),
+        ("K32", 257, 32), ("B1024K128", 1024, 128), ("K130", 5, 130),
+        ("B33", 33, 40)]
+    path_eq = {label: eq for label, _, _, eq in TOPN_SHAPES}
     tie = (torch.tensor([[0.5, 0.7, 0.5, 0.7, 0.1], [1.0] * 5], device=dev),
            torch.tensor([[1.0, 2.0, 4.0, 8.0, 16.0]] * 2, device=dev),
            torch.tensor([3, 2], dtype=torch.int32, device=dev))
-    worst, main = 0.0, None
+    worst, main, shapes = 0.0, None, {}
     for label, b, k in cases + [("ties", 2, 5)]:
-        args = tie if label == "ties" else topn_rows(b, k)
+        args = tie if label == "ties" else topn_rows(b, k, gen, dev)
         for eq in (True, False):
             out = ops.topn_lp(*args, equality=eq)
             want = topn.topn_lp_plain(*args, equality=eq)
             torch.cuda.synchronize()
             err = (out - want).abs().max().item()
             worst = max(worst, err)
-            if err > 1e-6:
-                fail(f"topn_lp {label} equality={eq}: max|diff| {err}")
+            if err > 1e-6 or not torch.equal(out, want):
+                fail(f"topn_lp {label} equality={eq}: not bit-equal to the "
+                     f"plain version, max|diff| {err}")
             if label == "ties" and eq and out.tolist() != [11.0, 3.0]:
                 fail(f"topn_lp tie order: {out.tolist()}")
             ms = cuda_ms(lambda: ops.topn_lp(*args, equality=eq))
             plain_ms = cuda_ms(lambda: topn.topn_lp_plain(*args, equality=eq),
                                iters=5)
             b_ms, b_by = bound(*topn_cost(b, k))
+            dev_ms = None
+            if path_eq.get(label) == eq:
+                dev_ms = graph_ms(lambda: ops.topn_lp(*args, equality=eq))
+                shapes[f"{b}x{k}"] = dev_ms
+            graph = "" if dev_ms is None else f" graph={dev_ms:.5f}ms"
             print(f"topn_lp {label:9s} B={b:6d} K={k:3d} eq={eq!s:5s} "
-                  f"max|diff|={err:.3g} kernel={ms:.4f}ms "
+                  f"max|diff|={err:.3g} kernel={ms:.4f}ms{graph} "
                   f"plain={plain_ms:.4f}ms bound={b_ms:.5f}ms ({b_by})",
                   flush=True)
             if label == "main" and eq:
-                main = (ms, plain_ms, b_ms, b_by)
+                main = (ms, plain_ms, b_ms, b_by, dev_ms)
     results["topn_lp"] = dict(max_abs_err=worst, ms=main[0], plain_ms=main[1],
-                              bound_ms=main[2], bound_by=main[3])
-
-    # ---- awc_fw: FW gradients and the octave ladder
-    def awc_rows(b, k, g):
-        z = torch.rand((b, k), generator=gen)
-        mu = 0.05 + 0.95 * torch.rand((b, k), generator=gen)
-        mu[::5, :2] = 1.0
-        c = 0.6 * torch.rand((b, k), generator=gen)
-        if g == 25:
-            lams = (2.0 ** torch.arange(25.0)).expand(b, g).contiguous()
-        else:
-            lams = 4 * torch.rand((b, g), generator=gen)
-        n = torch.randint(1, k + 1, (b,), generator=gen, dtype=torch.int32)
-        return tuple(x.to(dev) for x in (z, mu, c, lams, n))
+                              bound_ms=main[2], bound_by=main[3],
+                              graph_ms=main[4], graph_ms_shapes=shapes)
 
     cases = [("main", 1365, 9, 25), ("B64K9G25", 64, 9, 25),
-             ("B512K9G25", 512, 9, 25), ("B256K64G8", 256, 64, 8)]
+             ("B512K9G25", 512, 9, 25), ("B257K17G8", 257, 17, 8),
+             ("B256K64G8", 256, 64, 8)]
     tie = tuple(x.to(dev) for x in (
         torch.zeros((2, 4)),
         torch.tensor([[0.5, 0.5, 0.25, 0.5], [0.5, 0.25, 0.125, 0.0625]]),
@@ -345,28 +416,33 @@ def phase_kernels(ops, topn, awc, dev):
         torch.tensor([3, 2], dtype=torch.int32)))
     worst, main = 0.0, None
     for label, b, k, g in cases + [("ties", 2, 4, 2)]:
-        args = tie if label == "ties" else awc_rows(b, k, g)
+        args = tie if label == "ties" else awc_rows(b, k, g, gen, dev)
         gk, ck = ops.awc_fw(*args)
         gp, cp = awc.awc_fw_plain(*args)
         torch.cuda.synchronize()
         err_g = (gk - gp).abs().max().item()
         err_c = (ck - cp).abs().max().item()
         worst = max(worst, err_g, err_c)
-        if err_g > 2e-6 or err_c > 1e-6:
-            fail(f"awc_fw {label}: max|diff| g {err_g} costs {err_c}")
+        if err_g > 2e-6 or err_c > 1e-6 or not torch.equal(ck, cp):
+            fail(f"awc_fw {label}: max|diff| g {err_g} costs {err_c} (costs "
+                 "must equal the plain version's)")
         if label == "ties" and ck[0, 1].item() != 1.0:
             fail(f"awc_fw positivity: {ck.tolist()}")
         ms = cuda_ms(lambda: ops.awc_fw(*args))
         plain_ms = cuda_ms(lambda: awc.awc_fw_plain(*args), iters=5)
         b_ms, b_by = bound(*awc_cost(b, k, g))
+        dev_ms = graph_ms(lambda: ops.awc_fw(*args)) if label == "main" \
+            else None
+        graph = "" if dev_ms is None else f" graph={dev_ms:.5f}ms"
         print(f"awc_fw  {label:9s} B={b:6d} K={k:3d} G={g:2d} "
-              f"max|diff| g={err_g:.3g} costs={err_c:.3g} kernel={ms:.4f}ms "
-              f"plain={plain_ms:.4f}ms bound={b_ms:.5f}ms ({b_by})",
+              f"max|diff| g={err_g:.3g} costs={err_c:.3g} kernel={ms:.4f}ms"
+              f"{graph} plain={plain_ms:.4f}ms bound={b_ms:.5f}ms ({b_by})",
               flush=True)
         if label == "main":
-            main = (ms, plain_ms, b_ms, b_by)
+            main = (ms, plain_ms, b_ms, b_by, dev_ms)
     results["awc_fw"] = dict(max_abs_err=worst, ms=main[0], plain_ms=main[1],
-                             bound_ms=main[2], bound_by=main[3])
+                             bound_ms=main[2], bound_by=main[3],
+                             graph_ms=main[4])
     print(f"kernels: {sorted(results)}", flush=True)
     return results
 
@@ -439,6 +515,17 @@ def phase_decision(pool, dev, m: int, rounds: int):
     mask_c, z_c = act({k: v.to(cpu) for k, v in st.stats.items()},
                       t_row.cpu(), ka.cpu(), cfg_c)
     z_g, mask_g = z_g.cpu(), mask_g.cpu()
+    print(f"decision: CPU half on {torch.get_num_threads()} threads",
+          flush=True)
+    for b, k, g in F5_SHAPES:
+        bits = {t: awc_plain_bits(b, k, g, t) for t in F5_THREADS}
+        print(f"decision: plain awc_fw {b}x{k}x{g}, first call in a fresh "
+              "interpreter: " + "; ".join(
+                  f"{used} threads g {gb[:16]} costs {cb[:16]}"
+                  for used, gb, cb in bits.values()), flush=True)
+        if len({v[1:] for v in bits.values()}) != 1:
+            fail(f"the plain awc_fw at {b}x{k}x{g} depends on the CPU "
+                 "thread count (F5)")
     dz = (z_g - z_c).abs().max(-1).values
     print(f"decision: {m} tenants after {rounds} rounds; max|z_card - z_cpu| "
           f"= {dz.max().item():.3g}; rows with z̃ differing: "

@@ -18,15 +18,18 @@ index order on equality; positivity g_i > λc_i) with `__fsub_rn` and
 nvcc's default ``--fmad=true``, the hazard the `core.ranks` docstring
 describes.
 
-Bound on the H100: launches. At the main path's shape (1,365 AWC tenants,
-K = 9, G = 25) a call moves ~0.5 MB and does ~11 M compares, each well under
-a microsecond of the card's rates, and the FW loop issues 8 calls a round.
+Bound on the H100: operations, and in practice the launch. At the main
+path's shape (1,365 AWC tenants, K = 9, G = 25) a call moves ~0.5 MB and
+does ~12 M operations, each well under a microsecond of the card's rates,
+and the FW loop issues 8 calls a round.
 
-Design (`csrc/awc_fw.cu`): one warp per row with c, g and a scratch row in
-shared memory; the log terms and each λ's masked costs are summed by lane 0
-in arm-index order — the order `awc_fw_plain` sums in. A later change
-should fuse the FW step's mantissa rounds into the kernel and capture the
-loop in a CUDA graph.
+Design (`csrc/awc_fw.cu`): at K <= 32 a block takes R rows (R·G close to
+256 threads). A thread per (row, arm) forms the log terms in shared
+memory, sums its row's in arm-index order and writes g; then a thread per
+(row, λ) holds the row's g and c in registers, counts the K² crossing
+compares fully unrolled and sums the masked costs in arm-index order —
+the order `awc_fw_plain` sums in. Wider rows take a warp per row, the λ's
+in turn.
 """
 from __future__ import annotations
 

@@ -7,18 +7,18 @@ Replaces the Pallas TPU kernel `repro/kernels/topn_lp.py:topn_lp`. For
 
 times [score_bk > 0] when ``equality`` is False; the lower index wins ties.
 
-Bound on the H100: bytes and launches. At the main path's K = 9 a row is
-two 36-byte rows in and 4 bytes out against ~81 compares, far below the
-compute roof; the widest call, 2,731 tenants × 64 λ probes = 174,784 rows,
-reads ~12.6 MB (≈ 3.8 µs at 3.35 TB/s), and the narrower calls are bounded
-by the launch itself.
+Bound on the H100: bytes. At the main path's K = 9 a row is two 36-byte
+rows in and 4 bytes out against ~81 compares, far below the compute roof;
+the widest call, 2,731 tenants × 64 λ probes = 174,784 rows, moves ~14 MB
+(≈ 4.2 µs at 3.35 TB/s).
 
-Design (`csrc/topn_lp.cu`): one warp per row, rows staged in shared memory,
-each lane counting the rank of its arms with a loop over j, the masked cost
-summed by lane 0 in arm-index order — the order `topn_lp_plain` sums in, so
-the two agree to the bit. The ragged K edge is handled by loop bounds, not
-by padding. Launch-bound, so a later change should give a warp several
-rows and capture the solver's round in a CUDA graph.
+Design (`csrc/topn_lp.cu`): at K <= 32, a thread per row. A block stages
+its rows' score and cost spans in shared memory with coalesced 16-byte
+loads; each thread pulls its row into registers and counts the K² stable
+rank compares fully unrolled (a template over a K cap of 16 or 32), and
+sums the masked costs in arm-index order with `__fmul_rn` / `__fadd_rn`,
+the order and roundings of `topn_lp_plain`, so the two agree to the bit.
+Wider rows take a warp per row, ranks counted over a loop on j.
 """
 from __future__ import annotations
 

@@ -69,6 +69,115 @@ def test_awc_fw_kernel_matches_plain(dev, b, k, g):
     assert (ck - cp).abs().max().item() <= 1e-6
 
 
+# the fleet kernels' paths: a thread per row (per (row, λ) in awc_fw) at
+# K <= 16 and K <= 32, a warp per row above; blocks of 256 rows in topn_lp
+EDGE_K = [1, 16, 17, 31, 32, 33]
+EDGE_B = [1, 255, 257]
+LAM_CAP = 2.0 ** 24          # relax.LAM_MAX_EXP
+
+
+def _topn_edge_rows(b, k, seed, dev):
+    """Scores with ties inside rows, all-tie rows, negative scores;
+    zero-cost arms; n from 0 to K + 1."""
+    g = torch.Generator().manual_seed(seed)
+    score = torch.randn((b, k), generator=g)
+    score[::4, 1::3] = score[::4, :1]
+    score[1::3] = 0.25
+    cost = torch.rand((b, k), generator=g)
+    cost[:, ::4] = 0.0
+    n = torch.randint(0, k + 2, (b,), generator=g, dtype=torch.int32)
+    return score.to(dev), cost.to(dev), n.to(dev)
+
+
+def _awc_edge_rows(b, k, g_pts, seed, dev):
+    """The FW loop's inputs with all-tie rows (z̃ = 0, equal μ and c, so
+    λ = 0 ties every pair), zero-cost arms, clipped μ, and λ = 0, the
+    2^24 cap and the octave ladder between."""
+    g = torch.Generator().manual_seed(seed)
+    z = torch.rand((b, k), generator=g)
+    mu = 0.05 + 0.95 * torch.rand((b, k), generator=g)
+    mu[::5, :2] = 1.0
+    c = 0.6 * torch.rand((b, k), generator=g)
+    c[:, ::4] = 0.0
+    z[1::3], mu[1::3], c[1::3] = 0.0, 0.5, 0.3
+    lams = torch.cat([torch.zeros(1), 2.0 ** torch.arange(1.0, g_pts - 1),
+                      torch.tensor([LAM_CAP])]).expand(b, g_pts).contiguous()
+    n = torch.randint(1, k + 1, (b,), generator=g, dtype=torch.int32)
+    return tuple(x.to(dev) for x in (z, mu, c, lams, n))
+
+
+@pytest.mark.parametrize("b", EDGE_B)
+@pytest.mark.parametrize("k", EDGE_K)
+def test_topn_lp_paths_equal_plain_at_their_edges(dev, b, k):
+    args = _topn_edge_rows(b, k, 31 * b + k, dev)
+    for equality in (True, False):
+        out = ops.topn_lp(*args, equality=equality)
+        want = topn.topn_lp_plain(*args, equality=equality)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), (equality,
+                                        (out - want).abs().max().item())
+
+
+@pytest.mark.parametrize("b", EDGE_B)
+@pytest.mark.parametrize("k", EDGE_K)
+def test_awc_fw_paths_equal_plain_at_their_edges(dev, b, k):
+    args = _awc_edge_rows(b, k, 25, 37 * b + k, dev)
+    gk, ck = ops.awc_fw(*args)
+    gp, cp = awc.awc_fw_plain(*args)
+    torch.cuda.synchronize()
+    assert (gk - gp).abs().max().item() <= 2e-6
+    assert torch.equal(ck, cp), (ck - cp).abs().max().item()
+
+
+def test_fleet_kernels_replay_from_a_cuda_graph(dev):
+    """Calls captured in a CUDA graph give the eager calls' outputs, and
+    after new inputs are copied into the captured tensors, the plain
+    version's on those inputs."""
+    def calls(tensors, topn_lp=ops.topn_lp, awc_fw=ops.awc_fw):
+        """[(is awc_fw's g, output), ...] of every call."""
+        outs = []
+        for score, cost, n in tensors["topn"]:
+            outs.append((False, topn_lp(score, cost, n, equality=False)))
+        for args in tensors["awc"]:
+            g, costs = awc_fw(*args)
+            outs += [(True, g), (False, costs)]
+        return outs
+
+    def inputs(seed):
+        return {"topn": [_topn_edge_rows(b, k, seed + b, dev)
+                         for b, k in ((4096, 9), (300, 33))],
+                "awc": [_awc_edge_rows(b, k, g, seed + b, dev)
+                        for b, k, g in ((1365, 9, 25), (40, 33, 4))]}
+
+    live = inputs(1)
+    eager = calls(live)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls(live)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = calls(live)
+    graph.replay()
+    torch.cuda.synchronize()
+    for (_, got), (_, want) in zip(captured, eager):
+        assert torch.equal(got, want)
+    fresh = inputs(2)
+    for group in ("topn", "awc"):
+        for dst, src in zip(live[group], fresh[group]):
+            for d, s in zip(dst, src):
+                d.copy_(s)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = calls(fresh, topn.topn_lp_plain, awc.awc_fw_plain)
+    for (is_g, got), (_, w) in zip(captured, want):
+        if is_g:
+            assert (got - w).abs().max().item() <= 2e-6
+        else:
+            assert torch.equal(got, w)
+
+
 def test_kernels_reject_what_they_do_not_take(dev):
     x = torch.zeros((4, 9), device=dev)
     n = torch.ones((4,), dtype=torch.int32, device=dev)

@@ -135,6 +135,29 @@ def test_awc_fw_plain_gradient_is_exact_on_the_z0_rows():
     assert np.array_equal(g.numpy(), np.clip(mu, 0, np.float32(1 - 1e-6)))
 
 
+def _chip_smoke():
+    import importlib.util
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("b,k,g", [(1365, 9, 25), (200000, 9, 1)])
+def test_awc_fw_plain_bits_do_not_depend_on_the_thread_count(b, k, g):
+    """F5: the plain awc_fw, each time the first call of a fresh
+    interpreter, at 1 and at 8 CPU threads gives the same g and costs to
+    the bit, at the fleet's AWC shape and at 200,000 rows (above ATen's
+    32,768-element grain, so its elementwise ops split over the threads).
+    `chip_smoke.py` runs the same check in phase 4 on the card's host."""
+    smoke = _chip_smoke()
+    runs = [smoke.awc_plain_bits(b, k, g, threads)
+            for threads in smoke.F5_THREADS]
+    assert [used for used, _, _ in runs] == list(smoke.F5_THREADS)
+    assert runs[0][1:] == runs[1][1:]
+
+
 # ================================================== dispatch: no fallback
 class _ClaimsCuda:
     """A stand-in tensor that says it lives on CUDA (this host has none)."""
@@ -221,11 +244,7 @@ def test_ssd_cost_counts_the_main_shape():
     shape (B 4, NC 8, L 256, H 48, P 64, N 128, B/C bf16), counted by hand:
     bytes 4·(2·25,165,824 + 393,216 + 12,582,912) + 2·2·1,048,576;
     operations 32·(256²·128 + 256²·64·48 + 2·256·128·64·48)."""
-    import importlib.util
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _chip_smoke()
     xd = torch.empty((4, 8, 256, 48, 64), device="meta")
     bm = torch.empty((4, 8, 256, 128), dtype=torch.bfloat16, device="meta")
     nbytes, nops = smoke.ssd_cost(xd, bm)

@@ -63,6 +63,17 @@ Phases, each of which fails the run on any mismatch:
  12. ssm-consistency  at full width, prefill of 1,024 tokens and 256
                 teacher-forced decode steps against `forward` over all 1,280
  13. ssm-card-cpu  phase 10 for the reduced Mamba2
+ 14. serve-moe  phase 8's serving path for OLMoE-1B-7B at full width (16
+                layers, 16 / 16 heads of 128, 64 experts top 8; bf16): one
+                `flash_attention` per layer a prefill and one
+                `decode_attention` per layer a decode step (n_rep 1), and
+                nothing else; then two identical 4 x 2,048 prefills must give
+                the same bits (logits and cache)
+ 15. moe-consistency  phase 9 for OLMoE at the no-drop capacity factor 64
+                (prompts of 512 tokens)
+ 16. moe-card-cpu  phase 10 for the reduced OLMoE at the configs' capacity
+                factor (125 slots an expert for 200 tokens' 400 entries, so
+                an expert chosen more often drops the rest)
 
 The next-to-last line of output is one JSON object describing every kernel;
 the last is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -70,6 +81,7 @@ the repository beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -102,6 +114,7 @@ QUICKSTART_ROUNDS = 2000         # examples/quickstart.py's T (phase 7)
 SERVE_ARCH = "starcoder2-7b"     # the serving path's model (phase 8)
 WINDOW_ARCH = "h2o-danube-3-4b"  # head_dim 120, sliding window (phase 10b)
 SSM_ARCH = "mamba2-780m"         # the SSM serving path's model (phase 11)
+MOE_ARCH = "olmoe-1b-7b"         # the MoE serving path's model (phase 14)
 SERVE_MAX_LEN = 4096
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
@@ -722,8 +735,10 @@ def phase_attention_kernels(ops, dev):
     # of 4 prompts of 2,048 tokens at StarCoder2-7B's heads; S129 to win100
     # sit on the bf16 kernel's 128-row and 128-key tile edges; "h2o" is
     # H2O-Danube-3-4B's prefill of 4 x 1,024 (head_dim 120, window 4,096),
-    # h2o to hd80 take the pad route
+    # h2o to hd80 take the pad route; "olmoe" is OLMoE-1B-7B's prefill of 4
+    # x 2,048 at n_rep 1 (16 / 16 heads of 128), timed as "main" is
     cases = [("main", 4, 2048, 36, 4, 128, True, None, bf16),
+             ("olmoe", 4, 2048, 16, 16, 128, True, None, bf16),
              ("B1S128", 1, 128, 4, 4, 64, True, None, f32),
              ("B1S128", 1, 128, 4, 4, 64, True, None, bf16),
              ("ragged", 2, 200, 9, 1, 128, True, None, f32),
@@ -767,7 +782,7 @@ def phase_attention_kernels(ops, dev):
               f"max|diff|={err:.3g} row ratio={row:.3g}", flush=True)
         if label == "h2o" and dt == bf16:
             flash_pad_route(ops, fa, q, k, v, window)
-        if label == "main":
+        if label in ("main", "olmoe"):
             ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True))
             plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
                 q, k, v, causal=True), iters=3, warmup=1)
@@ -776,9 +791,10 @@ def phase_attention_kernels(ops, dev):
                 qt, kt, vt, is_causal=True, enable_gqa=True))
             nbytes, flops = flash_cost(q, k, True)
             b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
-            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=lib_ms)
-            print(f"flash_attention main: kernel={ms:.4f}ms "
+            if label == "main":
+                main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib_ms)
+            print(f"flash_attention {label}: kernel={ms:.4f}ms "
                   f"({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the "
                   f"bound) plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
                   f"bound={b_ms:.5f}ms ({b_by})", flush=True)
@@ -794,9 +810,13 @@ def phase_attention_kernels(ops, dev):
     # nrep16 and nrep32 fill two M tiles of the bf16 kernel's products,
     # "edge" puts pos on the 256-slot split edge of its shape, and "noslot"
     # has a row with pos -1, which must come out as zeros (the plain version
-    # gives the mean of V there, so such rows are held to 0 instead)
+    # gives the mean of V there, so such rows are held to 0 instead);
+    # "olmoe" is OLMoE-1B-7B's decode step at n_rep 1 (one of the products'
+    # 16 M rows in use), timed as "main" is, and "whisper" Whisper's layout
     main_pos = [1100, 1110, 1120, 1130, 3040, 3041, 3047, 3055]
     cases = [("main", 8, 4096, 36, 4, 128, main_pos, bf16),
+             ("olmoe", 8, 4096, 16, 16, 128, main_pos, bf16),
+             ("whisper", 2, 512, 20, 20, 64, [0, 511], bf16),
              ("rows", 4, 128, 4, 2, 64, [0, 5, 63, 127], f32),
              ("rows", 4, 128, 4, 2, 64, [0, 5, 63, 127], bf16),
              ("scalar", 2, 256, 4, 2, 64, 100, f32),
@@ -833,7 +853,7 @@ def phase_attention_kernels(ops, dev):
         print(f"decode_attention {label:7s} B={b} T={t} H={h} KV={kv} "
               f"hd={hd} pos={pos} {dt}: max|diff|={err:.3g} "
               f"row ratio={row:.3g}", flush=True)
-        if label == "main":
+        if label in ("main", "olmoe"):
 
             def call():
                 return ops.decode_attention(q, k, v, pos_t)
@@ -851,10 +871,11 @@ def phase_attention_kernels(ops, dev):
             lib_ms = cuda_ms(sdpa, iters=100)
             lib_dev_ms = graph_ms(sdpa)
             b_ms, b_by = bound(*decode_cost(q, k, pos_t), BF16_OPS_PER_S)
-            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=lib_ms, graph_ms=dev_ms,
-                        library_graph_ms=lib_dev_ms)
-            print(f"decode_attention main: kernel={ms:.4f}ms one by one, "
+            if label == "main":
+                main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib_ms,
+                            graph_ms=dev_ms, library_graph_ms=lib_dev_ms)
+            print(f"decode_attention {label}: kernel={ms:.4f}ms one by one, "
                   f"{dev_ms:.4f}ms from a CUDA graph ({b_ms / dev_ms:.3f} "
                   f"of the bound) plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
                   f"one by one, {lib_dev_ms:.4f}ms from a CUDA graph "
@@ -1100,18 +1121,21 @@ def phase_serve(ops, dev, arch: str, long_len: int, tag: str):
     return launches, params, cfg
 
 
-def phase_consistency(ops, params, cfg, dev, tag: str = "consistency"):
-    """Full width, bf16: prefill (one `flash_attention` launch per layer,
-    and no other kernel) + one decode step (the decode kernel, or with a
-    sliding window the ring cache's einsum) against `forward` over the
-    1,025 tokens (flash over the whole sequence). Both flows round their
-    activations to bf16 at every matmul and norm, in another order and at
-    other shapes, through every layer of the model."""
+def phase_consistency(ops, params, cfg, dev, tag: str = "consistency",
+                      prompt_len: int = 1024):
+    """Full width, bf16: prefill of two ``prompt_len``-token prompts (one
+    `flash_attention` launch per layer, and no other kernel) + one decode
+    step (the decode kernel, or with a sliding window the ring cache's
+    einsum) against `forward` over the prompt_len + 1 tokens (flash over
+    the whole sequence). Both flows round their activations to bf16 at
+    every matmul and norm, in another order and at other shapes, through
+    every layer of the model."""
     from repro_torch.models import model as M
     rng = np.random.default_rng(1)
-    toks = rng.integers(0, cfg.vocab, (2, 1024))
+    toks = rng.integers(0, cfg.vocab, (2, prompt_len))
     ops.reset_launches()
-    last, cache = M.prefill(cfg, params, {"tokens": toks}, 2048, device=dev)
+    last, cache = M.prefill(cfg, params, {"tokens": toks}, 2 * prompt_len,
+                            device=dev)
     torch.cuda.synchronize()
     want = {name: 0 for name in ops.KERNELS}
     want["flash_attention"] = cfg.n_layers
@@ -1119,7 +1143,7 @@ def phase_consistency(ops, params, cfg, dev, tag: str = "consistency"):
         fail(f"{tag}: prefill launches {dict(ops.LAUNCHES)}, expected "
              f"{want}")
     nxt = last.float().argmax(-1)[:, None]
-    lg, _ = M.decode_step(cfg, params, nxt, cache, 1024, device=dev)
+    lg, _ = M.decode_step(cfg, params, nxt, cache, prompt_len, device=dev)
     del cache
     ext = np.concatenate([toks, nxt.cpu().numpy()], axis=1)
     full, _ = M.forward(cfg, params, {"tokens": ext}, device=dev)
@@ -1144,6 +1168,22 @@ def phase_consistency(ops, params, cfg, dev, tag: str = "consistency"):
     if not max(d_pre, d_dec) <= tol:
         fail(f"{tag}: prefill/decode differ from forward by more than "
              f"{tol:.4g}")
+
+
+def phase_moe_determinism(params, cfg, dev) -> None:
+    """Two identical bf16 prefills of 4 x 2,048 tokens give the same bits:
+    the MoE combine sums a token's k outputs in a fixed order, with no
+    atomics (and cuBLAS is deterministic at fixed shapes)."""
+    from repro_torch.models import model as M
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (4, 2048))
+    (la, ca), (lb, cb) = (M.prefill(cfg, params, {"tokens": toks}, 2048,
+                                    device=dev) for _ in range(2))
+    same = torch.equal(la, lb) and all(
+        torch.equal(ca["attn"][n], cb["attn"][n]) for n in ("k", "v"))
+    print(f"moe-determinism: two 4 x 2048 bf16 prefills: logits and cache "
+          f"bit-equal: {same}", flush=True)
+    if not same:
+        fail("two identical bf16 MoE prefills differ")
 
 
 def phase_window(ops, dev) -> None:
@@ -1272,6 +1312,18 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
     phase_card_cpu(dev, SSM_ARCH, 64, "ssm-card-cpu")
+    moe_launches, params, cfg = phase_serve(ops, dev, MOE_ARCH, 3000,
+                                            "serve-moe")
+    for name in ("flash_attention", "decode_attention"):
+        if moe_launches[name] == 0:
+            fail(f"{name} never launched on the MoE serving path")
+    phase_moe_determinism(params, cfg, dev)
+    phase_consistency(ops, params,
+                      dataclasses.replace(cfg, capacity_factor=64.0), dev,
+                      "moe-consistency", prompt_len=512)
+    del params
+    torch.cuda.empty_cache()
+    phase_card_cpu(dev, MOE_ARCH, 200, "moe-card-cpu")
 
     kernels = []
     for name, mod in ops.KERNELS.items():

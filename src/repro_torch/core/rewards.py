@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 KINDS = ("awc", "suc", "aic")
@@ -28,6 +29,19 @@ def _f32(x, like=None):
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+def _rounded_from_f64(np_fn, torch_fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` evaluated in float64 and rounded once to float32; on the
+    CPU through numpy, on the calling thread. ATen's float64 exp on the CPU
+    (MKL's vector math) has returned one thread's share of a large tensor
+    with errors far above a float64 ulp, in some runs only, so its float32
+    bits depended on the thread count (ROADMAP F5)."""
+    if x.device.type == "cpu":
+        with np.errstate(all="ignore"):           # log(0) = -inf, as torch
+            y = np_fn(x.detach().double().numpy())
+        return torch.from_numpy(y).to(torch.float32)
+    return torch_fn(x.double()).to(torch.float32)
+
+
 def log_f32(x: torch.Tensor) -> torch.Tensor:
     """log, exp and log1p below are evaluated in float64 and rounded once to
     float32. The float32 versions of CUDA and of the CPU differ in the last
@@ -35,15 +49,15 @@ def log_f32(x: torch.Tensor) -> torch.Tensor:
     vertex; rounded from float64, both devices give the same bits unless a
     result lies within 2^-29 (relative) of a float32 rounding midpoint.
     The `awc_fw` kernel computes its gradient the same way."""
-    return torch.log(x.double()).to(torch.float32)
+    return _rounded_from_f64(np.log, torch.log, x)
 
 
 def log1p_f32(x: torch.Tensor) -> torch.Tensor:
-    return torch.log1p(x.double()).to(torch.float32)
+    return _rounded_from_f64(np.log1p, torch.log1p, x)
 
 
 def exp_f32(x: torch.Tensor) -> torch.Tensor:
-    return torch.exp(x.double()).to(torch.float32)
+    return _rounded_from_f64(np.exp, torch.exp, x)
 
 
 def sum_in_order(x: torch.Tensor) -> torch.Tensor:

@@ -1,14 +1,20 @@
 """Model assembly (port of `repro/models/model.py`): schema, parameter
-init, forward, prefill and the decode step, for the dense and SSM families.
+init, forward, prefill and the decode step, for the dense, MoE and SSM
+families.
 
 Parameters are a plain dict with the JAX tree's names: ``embed`` ({"tok",
 "unembed"}), ``layers`` and ``lnf``. Where JAX stacks the layers on a
 leading axis and runs `lax.scan`, the port keeps ``layers`` as a list of
 per-layer dicts and runs a Python loop. The decode cache keeps JAX's
 stacked layout, {"attn": {"k", "v"}} with leaves (layers, B, T, KV, hd) for
-the dense family and {"ssm": {"conv": (layers, B, 3, conv_ch), "state":
-(layers, B, H, P, N) fp32}} for the SSM family, and is updated in place
-(JAX donates it), one layer's view at a time.
+the dense and MoE families and {"ssm": {"conv": (layers, B, 3, conv_ch),
+"state": (layers, B, H, P, N) fp32}} for the SSM family, and is updated in
+place (JAX donates it), one layer's view at a time.
+
+An MoE layer routes at the config's capacity factor in `forward`,
+`prefill` and `decode_step` alike, as JAX does: its capacity follows the
+call's sequence length, so `forward` over S + 1 tokens may drop other
+entries than a prefill over S (a decode step of one token drops none).
 
 Every entry point takes ``device=`` (default "cuda") and raises without
 that device. The other families raise `NotImplementedError` naming their
@@ -32,15 +38,14 @@ from repro_torch.models.layers import (apply_norm, count_from_schema,
                                        stack_layers, torch_dtype, unembed)
 
 VLM_VISION_FRACTION = 8       # 1/8 of the sequence is patch embeddings
-PORTED = ("dense", "ssm")
-_WAITING = {"moe": "A21 (models/moe.py)",
-            "hybrid": "A23 (the SSM backbone with a shared attention block)",
+PORTED = ("dense", "moe", "ssm")
+_WAITING = {"hybrid": "A23 (the SSM backbone with a shared attention block)",
             "vlm": "A24 (M-RoPE and the vision projection)",
             "audio": "A25 (the encoder-decoder)"}
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise unless the port runs ``cfg``'s family (dense or SSM, for
+    """Raise unless the port runs ``cfg``'s family (dense, MoE or SSM, for
     now)."""
     if cfg.family not in PORTED:
         item = _WAITING.get(cfg.family, "none")
@@ -53,6 +58,8 @@ def check_family(cfg: ArchConfig) -> None:
 def _layer_schema(cfg: ArchConfig):
     if cfg.family == "ssm":
         return blocks.ssm_block_schema(cfg)
+    if cfg.family == "moe":
+        return blocks.moe_block_schema(cfg)
     return blocks.dense_block_schema(cfg)
 
 
@@ -83,8 +90,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, *,
 
 def param_count(cfg: ArchConfig, experts_only: bool = False) -> int:
     schema = model_schema(cfg)
-    if experts_only:              # the dense and SSM families have none
-        return 0
+    if experts_only:
+        if not cfg.n_experts:
+            return 0
+        moe = schema["layers"]["moe"]
+        return count_from_schema({k: moe[k] for k in ("wi_gate", "wi_up",
+                                                      "wo")})
     return count_from_schema(schema)
 
 
@@ -109,20 +120,26 @@ def _positions(b: int, s: int, dev) -> torch.Tensor:
 # ===================================================================== forward
 def forward(cfg: ArchConfig, params, inputs: Dict[str, Any], *,
             impl: str = "auto", device="cuda"):
-    """Full-sequence forward. Returns (logits (B,S,V), aux_loss 0.0)."""
+    """Full-sequence forward. Returns (logits (B,S,V), aux_loss): the sum of
+    the MoE layers' load-balance losses in fp32, 0.0 for other families."""
     check_family(cfg)
     dev, tokens = _device_inputs(params, inputs["tokens"], device)
     x = embed_tokens(cfg, params["embed"], tokens)
     b, s, _ = x.shape
     positions = _positions(b, s, dev)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for p_l in params["layers"]:
         if cfg.family == "ssm":
             x = blocks.apply_ssm_block(cfg, p_l, x)
+        elif cfg.family == "moe":
+            x, a_l = blocks.apply_moe_block(cfg, p_l, x, positions,
+                                            impl=impl)
+            aux = aux + a_l
         else:
             x = blocks.apply_dense_block(cfg, p_l, x, positions, impl=impl)
     x = apply_norm(cfg, params["lnf"], x)
     logits = unembed(cfg, params["embed"], x)
-    return logits, torch.zeros((), dtype=torch.float32, device=dev)
+    return logits, aux
 
 
 # ===================================================================== prefill
@@ -162,10 +179,12 @@ def prefill(cfg: ArchConfig, params, inputs: Dict[str, Any], max_len: int, *,
             conv[i].copy_(c["conv"])
             state[i].copy_(c["state"])
     else:
+        block = (blocks.apply_moe_block_prefill if cfg.family == "moe" else
+                 blocks.apply_dense_block_prefill)
         ck, cv = cache["attn"]["k"], cache["attn"]["v"]
         for i, p_l in enumerate(params["layers"]):
-            x, _ = blocks.apply_dense_block_prefill(
-                cfg, p_l, x, positions, {"k": ck[i], "v": cv[i]}, impl=impl)
+            x, _ = block(cfg, p_l, x, positions, {"k": ck[i], "v": cv[i]},
+                         impl=impl)
     x = apply_norm(cfg, params["lnf"], x[:, -1:])
     return unembed(cfg, params["embed"], x)[:, 0], cache
 
@@ -209,10 +228,11 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, pos, *,
             x, _ = blocks.apply_ssm_block_decode(
                 cfg, p_l, x, {"conv": conv[i], "state": state[i]})
     else:
+        block = (blocks.apply_moe_block_decode if cfg.family == "moe" else
+                 blocks.apply_dense_block_decode)
         pos = torch.as_tensor(pos, device=dev).to(torch.int32)  # not per layer
         ck, cv = cache["attn"]["k"], cache["attn"]["v"]
         for i, p_l in enumerate(params["layers"]):
-            x, _ = blocks.apply_dense_block_decode(
-                cfg, p_l, x, {"k": ck[i], "v": cv[i]}, pos)
+            x, _ = block(cfg, p_l, x, {"k": ck[i], "v": cv[i]}, pos)
     x = apply_norm(cfg, params["lnf"], x)
     return unembed(cfg, params["embed"], x), cache

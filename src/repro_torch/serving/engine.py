@@ -28,8 +28,8 @@ share the batch — what makes the slot path equal `generate` per request.
 
 JAX jits these phases and donates the slot state; the port runs them
 eagerly and updates the state's tensors in place, returning the same
-object. The engine runs the dense and SSM families
-(`models.model.check_family`).
+object. The engine runs the dense, MoE and SSM families
+(`models.model.check_family`); an MoE model uses the attention cache.
 """
 from __future__ import annotations
 
@@ -102,8 +102,8 @@ def _scatter_rows(big, sl, slot_ix) -> None:
 
 
 class Engine:
-    """One replica's generation engine over a dense or SSM ArchConfig model
-    whose parameters lie on ``device``."""
+    """One replica's generation engine over a dense, MoE or SSM ArchConfig
+    model whose parameters lie on ``device``."""
 
     def __init__(self, cfg: ArchConfig, params, *, max_len: int = 512,
                  eos_id: int = 1, temperature: float = 1.0,

@@ -225,7 +225,9 @@ def _attn_inputs(shapes, dtype, seed, dev):
     # head_dim 120 (H2O-Danube-3-4B's prefill, a ragged one) and 80: the
     # pad route to the hd-128 build
     (4, 1024, 32, 8, 120, True, 4096), (2, 200, 32, 8, 120, True, None),
-    (2, 129, 32, 32, 80, True, None)])
+    (2, 129, 32, 32, 80, True, None),
+    # n_rep 1: OLMoE-1B-7B's prefill (16 / 16 heads of 128)
+    (4, 2048, 16, 16, 128, True, None)])
 def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, h, kv, hd,
                                               causal, window):
     q, k, v = _attn_inputs([(b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)],
@@ -248,7 +250,11 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, b, s, h, kv, hd,
     # n_rep 16 at hd 128 and 32 at hd 64 (two M tiles of the bf16
     # kernel's products), and pos on the 256-slot split edge
     (2, 1024, 16, 1, 128, [0, 1023]), (2, 512, 32, 1, 64, [100, 511]),
-    (3, 4096, 36, 4, 128, [255, 256, 257])])
+    (3, 4096, 36, 4, 128, [255, 256, 257]),
+    # n_rep 1 (one of the products' 16 M rows in use): OLMoE-1B-7B's decode
+    # step at per-row pos, and Whisper's layout (20 / 20 heads of 64)
+    (8, 4096, 16, 16, 128, [1030, 1031, 1035, 1039, 3010, 3011, 3020, 3047]),
+    (2, 512, 20, 20, 64, [0, 511])])
 def test_decode_attention_kernel_matches_plain(dev, dtype, b, t, h, kv, hd,
                                                pos):
     q, k, v = _attn_inputs([(b, 1, h, hd), (b, t, kv, hd), (b, t, kv, hd)],
@@ -332,6 +338,54 @@ def test_serving_path_runs_the_attention_kernels(dev):
     last_c, _ = M.prefill(cfg, card, {"tokens": prompts}, 64, device=dev)
     last, _ = M.prefill(cfg, params, {"tokens": prompts}, 64, device="cpu")
     assert (last_c.cpu() - last).abs().max().item() <= 1e-4
+
+
+def test_moe_serving_path_runs_the_attention_kernels(dev):
+    """The reduced OLMoE in float32: `generate` launches one flash kernel
+    per layer for its prefill and one decode kernel per layer per decode
+    step, and its logits match the CPU's (the expert products and the
+    dispatch stay PyTorch)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("olmoe-1b-7b").reduced()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    card = convert.params_to(params, dev)
+    prompts = np.random.default_rng(0).integers(2, cfg.vocab, (3, 40))
+    ops.reset_launches()
+    Engine(cfg, card, max_len=64, device=dev).generate(prompts, 6)
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert ops.LAUNCHES["decode_attention"] == cfg.n_layers * 5
+    assert ops.LAUNCHES["ssd_chunk"] == 0
+    last_c, _ = M.prefill(cfg, card, {"tokens": prompts}, 64, device=dev)
+    last, _ = M.prefill(cfg, params, {"tokens": prompts}, 64, device="cpu")
+    assert (last_c.cpu() - last).abs().max().item() <= 1e-4
+
+
+def test_apply_moe_is_deterministic_on_the_card(dev):
+    """bf16: two calls on the same inputs give the same bits (a token's k
+    outputs are summed in a fixed order, no atomics); fp32: the card
+    within 1e-5 of the CPU, at drops (capacity 0.25) and without."""
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("olmoe-1b-7b").reduced()
+    g = torch.Generator().manual_seed(0)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    p = {"router": torch.randn((d, e), generator=g) * 0.05,
+         "wi_gate": torch.randn((e, d, f), generator=g) * 0.05,
+         "wi_up": torch.randn((e, d, f), generator=g) * 0.05,
+         "wo": torch.randn((e, f, d), generator=g) * 0.05}
+    x = torch.randn((4, 256, d), generator=g)
+    pc = {k: w.to(dev) for k, w in p.items()}
+    for cf in (0.25, None):
+        y, aux = moe.apply_moe(cfg, p, x, capacity_factor=cf)
+        yc, auxc = moe.apply_moe(cfg, pc, x.to(dev), capacity_factor=cf)
+        assert (yc.cpu() - y).abs().max().item() <= 1e-5
+        assert abs(auxc.item() - aux.item()) <= 1e-5
+    pb = {k: w.to(torch.bfloat16) for k, w in pc.items()}
+    xb = x.to(dev, torch.bfloat16)
+    first, _ = moe.apply_moe(cfg, pb, xb)
+    again, _ = moe.apply_moe(cfg, pb, xb)
+    assert first.dtype == torch.bfloat16 and torch.equal(first, again)
 
 
 # ssd_chunk: fp32 products in another order than the plain version's

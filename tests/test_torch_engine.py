@@ -15,6 +15,9 @@ CPU.
 * The slot API (two prefill/admit batches at different prompt lengths,
   decode chunks, release) gives each request, bit for bit, what `generate`
   gives for that request alone, as `tests/test_engine.py` pins for JAX.
+* Both again for the reduced OLMoE (the MoE family) at its configs'
+  capacity factor: dispatch is grouped by batch row, so a slot's tokens
+  never compete with another slot's for an expert's capacity.
 """
 import jax
 import jax.numpy as jnp
@@ -84,15 +87,27 @@ def test_sample_matches_jax(temperature):
                                atol=1e-5, rtol=0)
 
 
-@pytest.fixture(scope="module")
-def engines():
-    """(JAX params, port params) of the reduced StarCoder2, JAX's weights."""
-    jcfg = jget_config("starcoder2-7b").reduced()
-    cfg = get_config("starcoder2-7b").reduced()
+def reduced_pair(arch):
+    """(JAX cfg, JAX params, port cfg, port params) of ``arch`` reduced,
+    JAX's weights."""
+    jcfg = jget_config(arch).reduced()
+    cfg = get_config(arch).reduced()
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
     params = convert.params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
                                      device="cpu")
     return jcfg, jparams, cfg, params
+
+
+@pytest.fixture(scope="module")
+def engines():
+    """The reduced StarCoder2."""
+    return reduced_pair("starcoder2-7b")
+
+
+@pytest.fixture(scope="module")
+def moe_engines():
+    """The reduced OLMoE."""
+    return reduced_pair("olmoe-1b-7b")
 
 
 def first_difference(a, b):
@@ -115,8 +130,7 @@ def port_scores(cfg, params, prompts, tokens, row, step, seed, temperature):
     return (lg + prng.gumbel(key, lg.shape)).numpy()
 
 
-@pytest.mark.parametrize("temperature", [0.7, 1e-4])
-def test_generate_matches_reference(engines, temperature):
+def check_generate(engines, temperature):
     jcfg, jparams, cfg, params = engines
     prompts = np.random.default_rng(7).integers(2, cfg.vocab, (3, 10)
                                                 ).astype(np.int32)
@@ -142,6 +156,16 @@ def test_generate_matches_reference(engines, temperature):
                                   want.tokens[:, :step])
 
 
+@pytest.mark.parametrize("temperature", [0.7, 1e-4])
+def test_generate_matches_reference(engines, temperature):
+    check_generate(engines, temperature)
+
+
+@pytest.mark.parametrize("temperature", [0.7, 1e-4])
+def test_moe_generate_matches_reference(moe_engines, temperature):
+    check_generate(moe_engines, temperature)
+
+
 def harvest(state, slots, max_new):
     slots = torch.tensor(slots)
     n_out = state.n_out[slots]
@@ -150,7 +174,7 @@ def harvest(state, slots, max_new):
         (state.lp_sum[slots] / torch.clamp(n_out, min=1).float()).numpy())
 
 
-def test_slot_api_matches_generate_per_request(engines):
+def check_slots(engines):
     _, _, cfg, params = engines
     eng = engine.Engine(cfg, params, max_len=MAX_LEN, temperature=0.7,
                         device="cpu")
@@ -174,6 +198,14 @@ def test_slot_api_matches_generate_per_request(engines):
         np.testing.assert_array_equal(got.logprobs, want.logprobs)
     state = eng.release(state, req_a["slots"] + req_b["slots"])
     assert not state.active.any()
+
+
+def test_slot_api_matches_generate_per_request(engines):
+    check_slots(engines)
+
+
+def test_moe_slot_api_matches_generate_per_request(moe_engines):
+    check_slots(moe_engines)
 
 
 def test_admit_checks_are_real_exceptions(engines):

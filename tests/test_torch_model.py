@@ -3,14 +3,22 @@ the CPU, with JAX's own weights carried across by `convert.params_from_jax`.
 
 Two reduced dense configurations: StarCoder2 (LayerNorm, GELU-tanh MLP
 with biases, qkv bias; H 4 over KV 1, so n_rep 4) and Llama 3 (RMSNorm,
-SwiGLU, θ = 5e5); and H2O-Danube's sliding window with a ring cache
-shorter than the prompt, for the decode path that keeps the plain einsum.
+SwiGLU, θ = 5e5); two reduced MoE ones: OLMoE (4 experts, top 2, n_rep 1)
+and Arctic (the same with a dense residual MLP, n_rep 4), at the configs'
+capacity factor, so their prefills may drop entries as JAX's do, and with
+`forward`'s load-balance loss held at 1e-6; and H2O-Danube's sliding window
+with a ring cache shorter than the prompt, for the decode path that keeps
+the plain einsum.
 In float32 the two frameworks differ only in the order of
 their sums (matmuls, softmax, norms), so logits and caches are held at
 atol = rtol = 2e-5, the tolerance `tests/test_engine.py` holds prefill to;
 one decode step after prefill against `forward` on the extended sequence at
-2e-3, that test's own tolerance for the same check.
+2e-3, that test's own tolerance for the same check (for MoE at the no-drop
+capacity 64 that test uses: `forward` over S + 1 tokens has another
+capacity than a prefill over S).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +32,7 @@ from repro_torch.configs.base import get_config, list_archs
 from repro_torch.models import model as M
 
 torch.set_num_threads(1)
-ARCHS = ["starcoder2-7b", "llama3-405b"]
+ARCHS = ["starcoder2-7b", "llama3-405b", "olmoe-1b-7b", "arctic-480b"]
 TOL = dict(atol=2e-5, rtol=2e-5)
 B, S, MAX_LEN = 2, 12, 32
 
@@ -54,6 +62,17 @@ def test_param_count_of_starcoder2_7b():
     cfg = get_config("starcoder2-7b")
     assert M.param_count(cfg) == cfg.param_count() == 7_400_268_800
     assert M.param_count(cfg) == JM.param_count(jget_config("starcoder2-7b"))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_counts_match_reference(arch):
+    """At the published widths, all parameters and the experts' alone."""
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    for experts_only in (False, True):
+        assert M.param_count(cfg, experts_only) == \
+            JM.param_count(jcfg, experts_only)
+    assert (M.param_count(cfg, experts_only=True) > 0) == \
+        (cfg.family == "moe")
 
 
 def test_configs_are_the_reference_configs():
@@ -93,19 +112,22 @@ def test_init_params_has_the_reference_tree(pair):
         assert got.dtype == torch.float32, path
     assert torch.equal(params["layers"][1]["attn"]["wq"],
                        again["layers"][1]["attn"]["wq"])
-    std = params["layers"][0]["mlp"]["wi" if "wi" in
-                                      params["layers"][0]["mlp"]
-                                      else "wi_up"].std().item()
+    ffn = params["layers"][0].get("mlp") or params["layers"][0]["moe"]
+    std = ffn["wi" if "wi" in ffn else "wi_up"].std().item()
     assert abs(std - 0.02) < 0.002
 
 
 def test_forward_matches_reference(pair):
     jcfg, jparams, cfg, params = pair
     toks = tokens(cfg, (B, S), seed=1)
-    want, _ = JM.forward(jcfg, jparams, {"tokens": jnp.asarray(toks)})
+    want, jaux = JM.forward(jcfg, jparams, {"tokens": jnp.asarray(toks)})
     got, aux = M.forward(cfg, params, {"tokens": toks}, device="cpu")
-    assert got.shape == (B, S, cfg.vocab) and float(aux) == 0.0
+    assert got.shape == (B, S, cfg.vocab) and aux.dtype == torch.float32
     close(got, want)
+    if cfg.family == "moe":
+        close(aux, jaux, dict(atol=1e-6, rtol=0))
+    else:
+        assert float(aux) == 0.0
 
 
 def test_prefill_matches_reference_logits_and_cache(pair):
@@ -144,6 +166,8 @@ def test_prefill_then_decode_matches_forward(pair):
     """The port against itself: its decode cache continues its prompt
     (`tests/test_engine.py::test_prefill_matches_forward`'s check)."""
     _, _, cfg, params = pair
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=64.0)   # no drops
     toks = tokens(cfg, (B, S), seed=5)
     full, _ = M.forward(cfg, params, {"tokens": toks}, device="cpu")
     last, cache = M.prefill(cfg, params, {"tokens": toks}, MAX_LEN,
@@ -158,7 +182,7 @@ def test_prefill_then_decode_matches_forward(pair):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("olmoe-1b-7b", "A21"), ("zamba2-2.7b", "A23"),
+    ("zamba2-2.7b", "A23"),
     ("qwen2-vl-72b", "A24"), ("whisper-large-v3", "A25")])
 def test_other_families_raise_naming_their_item(arch, item):
     cfg = get_config(arch).reduced()
@@ -166,6 +190,15 @@ def test_other_families_raise_naming_their_item(arch, item):
         M.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         M.param_count(cfg)
+
+
+def test_apply_moe_ep_raises_naming_a18():
+    """Expert parallelism waits for the port's mesh (A18)."""
+    from repro_torch.models import moe
+    cfg = get_config("olmoe-1b-7b").reduced()
+    with pytest.raises(NotImplementedError, match="A18"):
+        moe.apply_moe_ep(cfg, {}, torch.zeros((1, 2, cfg.d_model)),
+                         mesh=None, batch_axes=("data",))
 
 
 def test_sliding_window_ring_cache_matches_reference():

@@ -9,9 +9,13 @@ Phases, each of which fails the run on any mismatch:
   3. kernels    each kernel against its plain PyTorch version on the card, at
                 the main paths' shapes and at edge, tie, ragged and (for
                 ssd_chunk) steep-decay cases, the attention kernels also
-                at head_dim 120 and 80 (`flash_attention`'s pad route) and
-                per (row, head) output vector, `decode_attention` also with
-                a row of pos -1 (zeros); `topn_lp` and `awc_fw`'s costs
+                at head_dim 120 and 80 (`flash_attention`'s pad route,
+                `decode_attention`'s own builds, at H2O-Danube-3-4B's and
+                Zamba2-2.7B's decode over a 4,096-slot ring, with positions
+                below, at and past its end) and per (row, head) output
+                vector, `decode_attention` also with rows of pos -1
+                (zeros); `ssd_chunk` also at Zamba2's width; the new
+                shapes timed as the main ones; `topn_lp` and `awc_fw`'s costs
                 bit-equal to theirs; times of calls made one by one
                 with CUDA events (for `decode_attention` and the two fleet
                 kernels, whose calls the host paces, also the device time
@@ -54,14 +58,17 @@ Phases, each of which fails the run on any mismatch:
                 `Engine.generate` on the card and on the CPU
  10b. h2o       phase 9 for H2O-Danube-3-4B at full width (24 layers,
                 head_dim 120 through `flash_attention`'s pad route, window
-                4,096), with one `flash_attention` per layer in its prefill
+                4,096) at a prompt of 4,200 tokens: one `flash_attention`
+                per layer in its prefill, then one `decode_attention` per
+                layer in a decode step at pos 4,200, past the ring's end
  11. serve-ssm  the same serving path for Mamba2-780M at full width (bf16,
                 `generate` on 4 prompts of 2,048 tokens, the slot API with
                 batches of 1,024 and 3,072 tokens): every prefill must launch
                 one `ssd_chunk` per layer and a decode step no kernel; then
                 the profiler trace of one prefill and 3 decode steps
  12. ssm-consistency  at full width, prefill of 1,024 tokens and 256
-                teacher-forced decode steps against `forward` over all 1,280
+                teacher-forced decode steps against `forward` over all 1,280,
+                with the launch counts gated
  13. ssm-card-cpu  phase 10 for the reduced Mamba2
  14. serve-moe  phase 8's serving path for OLMoE-1B-7B at full width (16
                 layers, 16 / 16 heads of 128, 64 experts top 8; bf16): one
@@ -74,6 +81,16 @@ Phases, each of which fails the run on any mismatch:
  16. moe-card-cpu  phase 10 for the reduced OLMoE at the configs' capacity
                 factor (125 slots an expert for 200 tokens' 400 entries, so
                 an expert chosen more often drops the rest)
+ 17. serve-hybrid  phase 8's serving path for Zamba2-2.7B at full width (54
+                Mamba2 layers and one shared dense block every 6, 32 / 32
+                heads of 80, window 4,096; bf16): each prefill launches 54
+                `ssd_chunk` and 9 `flash_attention`, each decode step 9
+                `decode_attention`, and nothing else
+ 18. hybrid-consistency  phase 12 for Zamba2: prefill of 4,096 tokens, then
+                256 decode steps at pos 4,096..4,351 (every one on a wrapped
+                ring) against `forward` over all 4,352
+ 19. hybrid-card-cpu  phase 10 for the reduced Zamba2 with a prompt of 64
+                and max_len 256: its 64-slot ring wraps in decode
 
 The next-to-last line of output is one JSON object describing every kernel;
 the last is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -115,6 +132,7 @@ SERVE_ARCH = "starcoder2-7b"     # the serving path's model (phase 8)
 WINDOW_ARCH = "h2o-danube-3-4b"  # head_dim 120, sliding window (phase 10b)
 SSM_ARCH = "mamba2-780m"         # the SSM serving path's model (phase 11)
 MOE_ARCH = "olmoe-1b-7b"         # the MoE serving path's model (phase 14)
+HYBRID_ARCH = "zamba2-2.7b"      # the hybrid serving path's model (phase 17)
 SERVE_MAX_LEN = 4096
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
@@ -135,8 +153,10 @@ SSD_RTOL = 1e-4
 SSD_MAIN_RTOL = 1e-5
 # ssd_chunk's cases (label, B, NC, L, H, P, N, B/C dtype, acum slope or 0
 # for the model's decay, scale of B/C, scale of xd); "main" is the SSM
-# prefill of 4 prompts of 2,048 tokens at Mamba2-780M's width
+# prefill of 4 prompts of 2,048 tokens at Mamba2-780M's width, "zamba2" the
+# same prefill at Zamba2-2.7B's (80 heads of 64, state 64), timed too
 SSD_CASES = [("main", 4, 8, 256, 48, 64, 128, torch.bfloat16, 0.0, 1, 1),
+             ("zamba2", 4, 8, 256, 80, 64, 64, torch.bfloat16, 0.0, 1, 1),
              ("L100", 1, 1, 100, 48, 64, 128, torch.bfloat16, 0.0, 1, 1),
              ("B1", 1, 8, 256, 48, 64, 128, torch.bfloat16, 0.0, 1, 1),
              ("steep", 2, 2, 256, 48, 64, 128, torch.bfloat16, 30.0, 1, 1),
@@ -736,9 +756,12 @@ def phase_attention_kernels(ops, dev):
     # sit on the bf16 kernel's 128-row and 128-key tile edges; "h2o" is
     # H2O-Danube-3-4B's prefill of 4 x 1,024 (head_dim 120, window 4,096),
     # h2o to hd80 take the pad route; "olmoe" is OLMoE-1B-7B's prefill of 4
-    # x 2,048 at n_rep 1 (16 / 16 heads of 128), timed as "main" is
+    # x 2,048 at n_rep 1 (16 / 16 heads of 128), timed as "main" is, and
+    # "zamba2" Zamba2-2.7B's shared block's (32 / 32 heads of 80, window
+    # 4,096, the pad route), timed too
     cases = [("main", 4, 2048, 36, 4, 128, True, None, bf16),
              ("olmoe", 4, 2048, 16, 16, 128, True, None, bf16),
+             ("zamba2", 4, 2048, 32, 32, 80, True, 4096, bf16),
              ("B1S128", 1, 128, 4, 4, 64, True, None, f32),
              ("B1S128", 1, 128, 4, 4, 64, True, None, bf16),
              ("ragged", 2, 200, 9, 1, 128, True, None, f32),
@@ -759,7 +782,7 @@ def phase_attention_kernels(ops, dev):
              ("ragged120", 2, 200, 32, 8, 120, True, None, f32),
              ("hd80", 2, 129, 32, 32, 80, True, None, bf16),
              ("hd80", 2, 129, 32, 32, 80, True, None, f32)]
-    errs, worst, main, worst_row = [], 0.0, None, 0.0
+    errs, worst, main, worst_row, shapes = [], 0.0, None, 0.0, {}
     for label, b, s, h, kv, hd, causal, window, dt in cases:
         q = rnd((b, s, h, hd), dt)
         k, v = rnd((b, s, kv, hd), dt), rnd((b, s, kv, hd), dt)
@@ -782,10 +805,13 @@ def phase_attention_kernels(ops, dev):
               f"max|diff|={err:.3g} row ratio={row:.3g}", flush=True)
         if label == "h2o" and dt == bf16:
             flash_pad_route(ops, fa, q, k, v, window)
-        if label in ("main", "olmoe"):
-            ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True))
+        if label in ("main", "olmoe", "zamba2"):
+            # (a window of 4,096 over 2,048 keys masks nothing beyond the
+            # causal mask, so SDPA's is_causal is the same function)
+            ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                     window=window))
             plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
-                q, k, v, causal=True), iters=3, warmup=1)
+                q, k, v, causal=True, window=window), iters=3, warmup=1)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True))
@@ -794,6 +820,9 @@ def phase_attention_kernels(ops, dev):
             if label == "main":
                 main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                             bound_by=b_by, library_ms=lib_ms)
+            else:
+                shapes[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by, library_ms=lib_ms)
             print(f"flash_attention {label}: kernel={ms:.4f}ms "
                   f"({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the "
                   f"bound) plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
@@ -803,7 +832,8 @@ def phase_attention_kernels(ops, dev):
     print(f"flash_attention per-row check: worst ratio {worst_row:.3g} "
           f"(gate 1: max|diff| <= {ROW_RTOL} max|want| + {ROW_ATOL} per "
           "(row, head))", flush=True)
-    results["flash_attention"] = dict(max_abs_err=worst, **main)
+    results["flash_attention"] = dict(max_abs_err=worst, **main,
+                                      shapes=shapes)
 
     # (label, B, T, H, KV, hd, pos, dtype); "main" is a decode step of the
     # slot phase: 8 slots of a 4,096-slot cache, 4 near 1,100, 4 near 3,040;
@@ -812,10 +842,25 @@ def phase_attention_kernels(ops, dev):
     # has a row with pos -1, which must come out as zeros (the plain version
     # gives the mean of V there, so such rows are held to 0 instead);
     # "olmoe" is OLMoE-1B-7B's decode step at n_rep 1 (one of the products'
-    # 16 M rows in use), timed as "main" is, and "whisper" Whisper's layout
+    # 16 M rows in use), timed as "main" is, and "whisper" Whisper's layout;
+    # "h2o" (head_dim 120, n_rep 4) and "zamba2" (head_dim 80, n_rep 1) are
+    # the sliding-window decode steps of H2O-Danube-3-4B and Zamba2-2.7B's
+    # shared block over a full 4,096-slot ring (every pos at or past T - 1),
+    # timed, and their "-ring" cases hold ring positions below T, at T - 1,
+    # past T and far past it, with a row of pos -1 (held to zeros)
     main_pos = [1100, 1110, 1120, 1130, 3040, 3041, 3047, 3055]
+    full_ring = [4095, 4096, 4200, 5000, 6143, 7000, 8191, 9000]
+    ring = [100, 4095, 4200, 9000, -1, 0, 2047, 5000]
     cases = [("main", 8, 4096, 36, 4, 128, main_pos, bf16),
              ("olmoe", 8, 4096, 16, 16, 128, main_pos, bf16),
+             ("h2o", 8, 4096, 32, 8, 120, full_ring, bf16),
+             ("zamba2", 8, 4096, 32, 32, 80, full_ring, bf16),
+             ("h2o-ring", 8, 4096, 32, 8, 120, ring, bf16),
+             ("h2o-ring", 8, 4096, 32, 8, 120, ring, f32),
+             ("zamba2-ring", 8, 4096, 32, 32, 80, ring, bf16),
+             ("zamba2-ring", 8, 4096, 32, 32, 80, ring, f32),
+             ("nrep17", 2, 1024, 17, 1, 120, [1023, 500], bf16),
+             ("nrep25", 2, 1024, 25, 1, 80, [1023, 500], bf16),
              ("whisper", 2, 512, 20, 20, 64, [0, 511], bf16),
              ("rows", 4, 128, 4, 2, 64, [0, 5, 63, 127], f32),
              ("rows", 4, 128, 4, 2, 64, [0, 5, 63, 127], bf16),
@@ -828,7 +873,7 @@ def phase_attention_kernels(ops, dev):
              ("edge", 3, 4096, 36, 4, 128, [255, 256, 257], bf16),
              ("noslot", 2, 4096, 36, 4, 128, [-1, 100], f32),
              ("noslot", 2, 4096, 36, 4, 128, [-1, 100], bf16)]
-    worst, main, worst_row = 0.0, None, 0.0
+    worst, main, worst_row, shapes = 0.0, None, 0.0, {}
     for label, b, t, h, kv, hd, pos, dt in cases:
         q = rnd((b, 1, h, hd), dt)
         k, v = rnd((b, t, kv, hd), dt), rnd((b, t, kv, hd), dt)
@@ -837,11 +882,12 @@ def phase_attention_kernels(ops, dev):
         out = ops.decode_attention(q, k, v, pos_t)
         want = dec.decode_attention_plain(q, k, v, pos_t)
         torch.cuda.synchronize()
-        if label == "noslot":
-            if torch.count_nonzero(out[0]).item():
-                fail(f"decode_attention noslot {dt}: the row with pos -1 "
-                     f"is not zero (max|o| {out[0].abs().max().item():.3g})")
-            out, want = out[1:], want[1:]
+        if isinstance(pos, list) and min(pos) < 0:
+            none = pos_t < 0
+            if torch.count_nonzero(out[none]).item():
+                fail(f"decode_attention {label} {dt}: a row with pos -1 is "
+                     f"not zero (max|o| {out[none].abs().max().item():.3g})")
+            out, want = out[~none], want[~none]
         err = (out.float() - want.float()).abs().max().item()
         row = fa.row_error_ratio(out, want, ROW_RTOL, ROW_ATOL)
         worst, worst_row = max(worst, err), max(worst_row, row)
@@ -853,7 +899,7 @@ def phase_attention_kernels(ops, dev):
         print(f"decode_attention {label:7s} B={b} T={t} H={h} KV={kv} "
               f"hd={hd} pos={pos} {dt}: max|diff|={err:.3g} "
               f"row ratio={row:.3g}", flush=True)
-        if label in ("main", "olmoe"):
+        if label in ("main", "olmoe", "h2o", "zamba2"):
 
             def call():
                 return ops.decode_attention(q, k, v, pos_t)
@@ -871,10 +917,13 @@ def phase_attention_kernels(ops, dev):
             lib_ms = cuda_ms(sdpa, iters=100)
             lib_dev_ms = graph_ms(sdpa)
             b_ms, b_by = bound(*decode_cost(q, k, pos_t), BF16_OPS_PER_S)
+            numbers = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=lib_ms, graph_ms=dev_ms,
+                           library_graph_ms=lib_dev_ms)
             if label == "main":
-                main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=lib_ms,
-                            graph_ms=dev_ms, library_graph_ms=lib_dev_ms)
+                main = numbers
+            else:
+                shapes[label] = numbers
             print(f"decode_attention {label}: kernel={ms:.4f}ms one by one, "
                   f"{dev_ms:.4f}ms from a CUDA graph ({b_ms / dev_ms:.3f} "
                   f"of the bound) plain={plain_ms:.4f}ms sdpa={lib_ms:.4f}ms "
@@ -882,7 +931,8 @@ def phase_attention_kernels(ops, dev):
                   f"bound={b_ms:.5f}ms ({b_by})", flush=True)
     print(f"decode_attention per-row check: worst ratio {worst_row:.3g} "
           "(gate 1)", flush=True)
-    results["decode_attention"] = dict(max_abs_err=worst, **main)
+    results["decode_attention"] = dict(max_abs_err=worst, **main,
+                                       shapes=shapes)
     return results
 
 
@@ -942,7 +992,7 @@ def phase_ssd_kernel(ops, dev):
                 wide[..., 64:64 + n].reshape(b, nc, l, n),
                 wide[..., 64 + n:].reshape(b, nc, l, n))
 
-    worst, main = 0.0, None
+    worst, main, shapes = 0.0, None, {}
     for (label, b, nc, l, h, p, n, bc_dtype, slope, bc_scale,
          x_scale) in SSD_CASES:
         xd, acum, bm, cm = inputs(b, nc, l, h, p, n, bc_dtype, slope,
@@ -963,34 +1013,61 @@ def phase_ssd_kernel(ops, dev):
         if not rel <= SSD_RTOL:
             fail(f"ssd_chunk {label}: relative max|diff| {rel:.3g} > "
                  f"{SSD_RTOL}")
-        if label == "main":
-            if not rel <= SSD_MAIN_RTOL:
-                fail(f"ssd_chunk main: relative max|diff| {rel:.3g} > "
-                     f"{SSD_MAIN_RTOL}")
+        if label == "main" and not rel <= SSD_MAIN_RTOL:
+            fail(f"ssd_chunk main: relative max|diff| {rel:.3g} > "
+                 f"{SSD_MAIN_RTOL}")
+        if label in ("main", "zamba2"):
             ms = cuda_ms(lambda: ops.ssd_chunk(*args))
             plain_ms = cuda_ms(lambda: ssd.ssd_chunk_plain(*args), iters=5)
             nbytes, nops = ssd_cost(args[0], args[2])
             b_ms, b_by = bound(nbytes, ssd_tensor_ops(args[0], args[2]),
                                TF32_OPS_PER_S)
             core_ms, _ = bound(nbytes, nops)
-            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None,
-                        bound_cuda_core_ms=core_ms)
-            print(f"ssd_chunk main: kernel={ms:.4f}ms plain={plain_ms:.4f}ms "
+            numbers = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=None,
+                           bound_cuda_core_ms=core_ms)
+            if label == "main":
+                main = numbers
+            else:
+                shapes[label] = numbers
+            print(f"ssd_chunk {label}: kernel={ms:.4f}ms "
+                  f"plain={plain_ms:.4f}ms "
                   f"bound={b_ms:.5f}ms ({b_by}; tensor cores: bf16 C Bᵀ, "
                   f"split TF32 products), {core_ms:.5f}ms with every "
                   "product on fp32 CUDA cores; no single PyTorch call "
                   "computes it", flush=True)
-    return {"ssd_chunk": dict(max_abs_err=worst, **main)}
+    return {"ssd_chunk": dict(max_abs_err=worst, **main, shapes=shapes)}
 
 
 def serve_kernels(cfg):
     """The kernels one prefill and one decode step of ``cfg`` launch, per
-    kernel (every other kernel must stay at 0)."""
+    kernel (every other kernel must stay at 0): a hybrid model's shared
+    block runs once per group of `shared_attn_period` SSM layers."""
     layers = cfg.n_layers
     if cfg.family == "ssm":
         return {"ssd_chunk": layers}, {}
+    if cfg.family == "hybrid":
+        groups = layers // cfg.shared_attn_period
+        return ({"ssd_chunk": layers, "flash_attention": groups},
+                {"decode_attention": groups})
     return {"flash_attention": layers}, {"decode_attention": layers}
+
+
+def expect_launches(ops, want, what: str) -> None:
+    """Fail unless the launch counts since the last reset are ``want``'s,
+    and every other kernel's are 0."""
+    want = {k: want.get(k, 0) for k in ops.KERNELS}
+    if dict(ops.LAUNCHES) != want:
+        fail(f"{what}: launches {dict(ops.LAUNCHES)}, expected {want}")
+
+
+def numel(tree) -> int:
+    """Elements of every tensor in nested dicts and lists."""
+    if isinstance(tree, dict):
+        return sum(numel(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(numel(v) for v in tree)
+    return tree.numel()
 
 
 def full_width(arch: str, dev, tag: str):
@@ -1002,10 +1079,7 @@ def full_width(arch: str, dev, tag: str):
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
-    n = sum(x.numel() for x in [*params["embed"].values(),
-                                *params["lnf"].values()])
-    n += sum(x.numel() for layer in params["layers"]
-             for sub in layer.values() for x in sub.values())
+    n = numel(params)                 # a hybrid's `shared` block included
     print(f"{tag}: {cfg.name} {n:,} parameters (bf16, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB) initialised in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1029,10 +1103,9 @@ def phase_serve(ops, dev, arch: str, long_len: int, tag: str):
     torch.cuda.reset_peak_memory_stats()
 
     def expect(prefills: int, steps: int, what: str) -> None:
-        want = {k: prefills * per_prefill.get(k, 0) + steps * per_step.get(k, 0)
-                for k in ops.KERNELS}
-        if dict(ops.LAUNCHES) != want:
-            fail(f"{what}: launches {dict(ops.LAUNCHES)}, expected {want}")
+        expect_launches(ops, {k: prefills * per_prefill.get(k, 0)
+                              + steps * per_step.get(k, 0)
+                              for k in ops.KERNELS}, what)
 
     def check_tokens(tokens, what: str) -> None:
         if tokens.min() < 0 or tokens.max() >= cfg.vocab:
@@ -1125,25 +1198,26 @@ def phase_consistency(ops, params, cfg, dev, tag: str = "consistency",
                       prompt_len: int = 1024):
     """Full width, bf16: prefill of two ``prompt_len``-token prompts (one
     `flash_attention` launch per layer, and no other kernel) + one decode
-    step (the decode kernel, or with a sliding window the ring cache's
-    einsum) against `forward` over the prompt_len + 1 tokens (flash over
-    the whole sequence). Both flows round their activations to bf16 at
-    every matmul and norm, in another order and at other shapes, through
-    every layer of the model."""
+    step (one `decode_attention` launch per layer, and no other kernel;
+    with a sliding window shorter than the prompt, on a ring that has
+    wrapped) against `forward` over the prompt_len + 1 tokens (flash over
+    the whole sequence; its window then holds the ring's positions). Both
+    flows round their activations to bf16 at every matmul and norm, in
+    another order and at other shapes, through every layer of the model."""
     from repro_torch.models import model as M
     rng = np.random.default_rng(1)
     toks = rng.integers(0, cfg.vocab, (2, prompt_len))
+    per_prefill, per_step = serve_kernels(cfg)
     ops.reset_launches()
     last, cache = M.prefill(cfg, params, {"tokens": toks}, 2 * prompt_len,
                             device=dev)
     torch.cuda.synchronize()
-    want = {name: 0 for name in ops.KERNELS}
-    want["flash_attention"] = cfg.n_layers
-    if dict(ops.LAUNCHES) != want:
-        fail(f"{tag}: prefill launches {dict(ops.LAUNCHES)}, expected "
-             f"{want}")
+    expect_launches(ops, per_prefill, f"{tag}: prefill")
     nxt = last.float().argmax(-1)[:, None]
+    ops.reset_launches()
     lg, _ = M.decode_step(cfg, params, nxt, cache, prompt_len, device=dev)
+    torch.cuda.synchronize()
+    expect_launches(ops, per_step, f"{tag}: decode step at pos {prompt_len}")
     del cache
     ext = np.concatenate([toks, nxt.cpu().numpy()], axis=1)
     full, _ = M.forward(cfg, params, {"tokens": ext}, device=dev)
@@ -1154,8 +1228,9 @@ def phase_consistency(ops, params, cfg, dev, tag: str = "consistency",
     agree = int((lg[:, 0].float().argmax(-1) == full[:, -1].argmax(-1))
                 .sum())
     print(f"{tag}: {cfg.name} ({cfg.n_layers} layers, head_dim "
-          f"{cfg.head_dim}): {want['flash_attention']} flash_attention "
-          f"launches in the prefill; max|logit| {scale:.3f}; prefill vs "
+          f"{cfg.head_dim}, prompt {prompt_len}): launches "
+          f"{per_prefill} in the prefill, {per_step} in the decode step; "
+          f"max|logit| {scale:.3f}; prefill vs "
           f"forward max|diff| {d_pre:.4g}; decode step vs forward max|diff| "
           f"{d_dec:.4g}; argmax agrees on {agree}/2 rows", flush=True)
     # A fault in either kernel (a wrong mask, head or row) moves logits by
@@ -1188,43 +1263,61 @@ def phase_moe_determinism(params, cfg, dev) -> None:
 
 def phase_window(ops, dev) -> None:
     """H2O-Danube-3-4B at its published width (head_dim 120, window 4,096)
-    through phase 9's check; its weights are freed after."""
+    through phase 9's check at a prompt of 4,200 tokens: the decode step at
+    pos 4,200 reads a wrapped 4,096-slot ring through `decode_attention`;
+    its weights are freed after."""
     cfg, params = full_width(WINDOW_ARCH, dev, "h2o")
-    phase_consistency(ops, params, cfg, dev, "h2o")
+    phase_consistency(ops, params, cfg, dev, "h2o", prompt_len=4200)
     del params
     torch.cuda.empty_cache()
 
 
-def phase_ssm_consistency(params, cfg, dev) -> None:
-    """Full width, bf16: prefill of 1,024 tokens, then 256 decode steps fed
-    the next tokens of the 1,280-token sequence, against `forward` over all
-    1,280 (the prefill's state and conv tail hand off to decode)."""
+def phase_ssm_consistency(ops, params, cfg, dev, tag: str = "ssm-consistency",
+                          prompt_len: int = 1024, steps: int = 256) -> None:
+    """Full width, bf16: prefill of ``prompt_len`` tokens, then ``steps``
+    decode steps fed the next tokens of the sequence, against `forward`
+    over all of it (the prefill's state and conv tail, and a hybrid's
+    shared-attention ring, hand off to decode); the prefill and every
+    decode step launch `serve_kernels`' counts, and nothing else."""
     from repro_torch.models import model as M
+    total = prompt_len + steps
     rng = np.random.default_rng(3)
-    toks = rng.integers(0, cfg.vocab, (2, 1280))
+    toks = rng.integers(0, cfg.vocab, (2, total))
     full, _ = M.forward(cfg, params, {"tokens": toks}, device=dev)
-    last, cache = M.prefill(cfg, params, {"tokens": toks[:, :1024]}, 1280,
-                            device=dev)
-    d_pre = (last.float() - full[:, 1023].float()).abs().max().item()
-    d_dec, agree, scale = 0.0, 0, full[:, 1023].float().abs().max().item()
+    per_prefill, per_step = serve_kernels(cfg)
+    ops.reset_launches()
+    last, cache = M.prefill(cfg, params, {"tokens": toks[:, :prompt_len]},
+                            total, device=dev)
+    torch.cuda.synchronize()
+    expect_launches(ops, per_prefill, f"{tag}: prefill")
+    d_pre = (last.float() - full[:, prompt_len - 1].float()).abs().max().item()
+    d_dec, agree = 0.0, 0
+    scale = full[:, prompt_len - 1].float().abs().max().item()
     tok = torch.as_tensor(toks, device=dev)
-    for i in range(1024, 1280):
+    ops.reset_launches()
+    for i in range(prompt_len, total):
         lg, cache = M.decode_step(cfg, params, tok[:, i:i + 1], cache, i,
                                   device=dev)
         want = full[:, i].float()
         d_dec = max(d_dec, (lg[:, 0].float() - want).abs().max().item())
         scale = max(scale, want.abs().max().item())
         agree += int((lg[:, 0].float().argmax(-1) == want.argmax(-1)).sum())
+    torch.cuda.synchronize()
+    expect_launches(ops, {k: steps * n for k, n in per_step.items()},
+                    f"{tag}: {steps} decode steps")
     del cache, full
-    print(f"ssm-consistency: max|logit| {scale:.3f}; prefill vs forward "
-          f"max|diff| {d_pre:.4g}; 256 decode steps vs forward max|diff| "
-          f"{d_dec:.4g}; argmax agrees on {agree}/512", flush=True)
+    print(f"{tag}: {cfg.name} max|logit| {scale:.3f}; prefill of "
+          f"{prompt_len} vs forward max|diff| {d_pre:.4g}; {steps} decode "
+          f"steps (pos {prompt_len}..{total - 1}) vs forward max|diff| "
+          f"{d_dec:.4g}; argmax agrees on {agree}/{2 * steps}", flush=True)
     # as phase_consistency argues: a fault in the hand-off (a stale conv
-    # window, a wrong state) moves logits by about their own size; bf16
-    # rounding in two flows over 48 layers by a few percent
+    # window, a wrong state, a ring slot out of place) moves logits by about
+    # their own size; bf16 rounding in two flows over 48–63 blocks by a few
+    # percent
     tol = scale / 8
     if not max(d_pre, d_dec) <= tol:
-        fail(f"prefill/decode differ from forward by more than {tol:.4g}")
+        fail(f"{tag}: prefill/decode differ from forward by more than "
+             f"{tol:.4g}")
 
 
 def phase_card_cpu(dev, arch: str, prompt_len: int, tag: str) -> None:
@@ -1308,7 +1401,7 @@ def main() -> None:
     if ssm_launches["ssd_chunk"] == 0:
         fail("ssd_chunk never launched on the SSM serving path")
     launches["ssd_chunk"] = ssm_launches["ssd_chunk"]
-    phase_ssm_consistency(params, cfg, dev)
+    phase_ssm_consistency(ops, params, cfg, dev)
     del params
     torch.cuda.empty_cache()
     phase_card_cpu(dev, SSM_ARCH, 64, "ssm-card-cpu")
@@ -1324,6 +1417,16 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
     phase_card_cpu(dev, MOE_ARCH, 200, "moe-card-cpu")
+    hybrid_launches, params, cfg = phase_serve(ops, dev, HYBRID_ARCH, 3072,
+                                               "serve-hybrid")
+    for name in ("ssd_chunk", "flash_attention", "decode_attention"):
+        if hybrid_launches[name] == 0:
+            fail(f"{name} never launched on the hybrid serving path")
+    phase_ssm_consistency(ops, params, cfg, dev, "hybrid-consistency",
+                          prompt_len=4096, steps=256)
+    del params
+    torch.cuda.empty_cache()
+    phase_card_cpu(dev, HYBRID_ARCH, 64, "hybrid-card-cpu")
 
     kernels = []
     for name, mod in ops.KERNELS.items():

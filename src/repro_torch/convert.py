@@ -84,7 +84,8 @@ def params_from_jax(cfg, tree, device="cuda"):
     {"ln1", "attn", "ln2", "moe": {"router", "wi_gate", "wi_up", "wo"}}
     for the MoE family, with "mlp" beside it for a dense residual;
     {"ln1", "ssm": {"w_in", "conv_w", "conv_b", "a_log", "d_skip",
-    "dt_bias", "norm", "w_out"}} for the SSM family)."""
+    "dt_bias", "norm", "w_out"}} for the SSM and hybrid families), and a
+    hybrid model's ``shared`` dense block as it is."""
     check_family(cfg)
     dev = resolve_device(device)
 
@@ -93,10 +94,13 @@ def params_from_jax(cfg, tree, device="cuda"):
             return {k: across(v, index) for k, v in sub.items()}
         return _tensor(sub if index is None else np.asarray(sub)[index], dev)
 
-    return {"embed": across(tree["embed"]),
-            "layers": [across(tree["layers"], i)
-                       for i in range(cfg.n_layers)],
-            "lnf": across(tree["lnf"])}
+    params = {"embed": across(tree["embed"]),
+              "layers": [across(tree["layers"], i)
+                         for i in range(cfg.n_layers)]}
+    if "shared" in tree:
+        params["shared"] = across(tree["shared"])
+    params["lnf"] = across(tree["lnf"])
+    return params
 
 
 def params_to(params, device):

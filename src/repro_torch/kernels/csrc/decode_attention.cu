@@ -50,6 +50,17 @@
 // fp32 with 16-byte loads and reduced with an fp32 online softmax on the
 // CUDA cores, one warp per head for the softmax and fixed (head, dim)
 // outputs per thread for the products.
+//
+// head_dim 64, 80, 120 and 128 are built, as instances of both kernels,
+// each reading its rows in place (no padded copy of the cache). In the
+// bf16 kernel a staged row is hd rounded up to 64 columns (128 at 80 and
+// 120), so the XOR swizzle of its 16-byte chunks stays inside the row; Q
+// K^T steps k by 16, so at 120 its last step reads one chunk past hd,
+// which the copy zero-fills in shared memory (as Q's columns past hd are
+// zeros in registers); P V's n tiles are hd / 8, 15 at 120, the last one
+// read with an x2 ldmatrix. A ring cache (sliding window) needs no mask
+// of its own: with pos past its end every slot is valid, which is what
+// min(pos, T-1) gives, and the softmax does not depend on slot order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -95,6 +106,14 @@ size_t smem_floats(int hd, int n_rep) {
          + 3 * (size_t)n_rep;        // m, l, alpha
 }
 
+// Loads a thread keeps in flight while staging a tile: the largest divisor
+// of its `per` loads up to 8 (8 at hd 64 and 128, 5 at hd 80 and 120)
+__host__ __device__ constexpr int load_group(int per) {
+  int g = per < 8 ? per : 8;
+  while (per % g) --g;
+  return g;
+}
+
 // Stage slots k0 .. k0+kBK-1 (zeros past `last`) of one KV head's K and V
 // into shared memory as fp32, 16 bytes per load.
 template <typename T, int HD>
@@ -105,8 +124,8 @@ __device__ __forceinline__ void stage_tile(const T* kbase, const T* vbase,
   constexpr int kVec = 16 / sizeof(T);            // elements per load
   constexpr int kRowChunks = HD / kVec;
   constexpr int kPer = kBK * kRowChunks / kThreads;
-  constexpr int kGroup = kPer < 8 ? kPer : 8;     // loads in flight
-  static_assert(kPer % kGroup == 0, "tile chunks per thread");
+  constexpr int kGroup = load_group(kPer);        // loads in flight
+  static_assert(kBK * kRowChunks % kThreads == 0, "tile chunks per thread");
   for (int g0 = 0; g0 < kPer; g0 += kGroup) {
     uint4 kx[kGroup], vx[kGroup];
 #pragma unroll
@@ -292,6 +311,14 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
       : "r"(addr)
       : "memory");
 }
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t addr,
+                                              uint32_t (&r)[2]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr)
+      : "memory");
+}
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
                                               uint32_t (&r)[4]) {
   asm volatile(
@@ -322,36 +349,48 @@ __device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
-// Byte offset of 16-byte chunk `chunk` of row `row` in a [16][HD] bf16
-// buffer whose chunks are XOR-swizzled by the row: the 8 rows an ldmatrix
-// phase reads fall in 8 different bank groups.
+// Columns of a staged K or V row: hd rounded up to whole groups of 8
+// 16-byte chunks (64 columns), so that the XOR swizzle below stays inside
+// the row: 64 at hd 64, 128 at hd 80, 120 and 128.
+template <int HD>
+__host__ __device__ constexpr int row_cols() {
+  return (HD + 63) / 64 * 64;
+}
+
+// Byte offset of 16-byte chunk `chunk` of row `row` in a [16][row_cols]
+// bf16 buffer whose chunks are XOR-swizzled by the row: the 8 rows an
+// ldmatrix phase reads fall in 8 different bank groups.
 template <int HD>
 __device__ __forceinline__ uint32_t swz(int row, int chunk) {
-  return row * (HD * 2) + ((chunk ^ (row & 7)) << 4);
+  return row * (row_cols<HD>() * 2) + ((chunk ^ (row & 7)) << 4);
 }
 
 // Shared memory of the bf16 kernel: per warp, kStages stages of its 16
-// slots' K and V, [16][HD] bf16 each; after the loop the same bytes hold
-// the warp's (O, m, l) for the merge.
+// slots' K and V, [16][row_cols] bf16 each; after the loop the same bytes
+// hold the warp's (O, m, l) for the merge.
 template <int HD>
 constexpr int mma_smem_bytes() {
-  return kWarps * kStages * 2 * kWarpSlots * HD * 2;
+  return kWarps * kStages * 2 * kWarpSlots * row_cols<HD>() * 2;
 }
 
 template <int HD, int MT>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_mma_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int kChunks = HD / 8;               // 16-byte chunks in a row
-  constexpr int kKSteps = HD / 16;              // k steps of Q K^T
-  constexpr int kNTiles = HD / 8;               // n tiles of P V
+  static_assert(HD % 16 == 0 || HD % 16 == 8, "whole 16-byte chunks");
+  constexpr int kChunks = HD / 8;               // 16-byte chunks of hd
+  constexpr int kKSteps = (HD + 15) / 16;       // k steps of Q K^T
+  constexpr int kCopies = 2 * kKSteps;          // chunks staged a row; one
+  //                                               past hd (hd 120) is zeros
+  constexpr int kNTiles = HD / 8;               // n tiles of P V (odd at 120)
   constexpr int kRows = MT * 16;                // M rows (query heads)
   constexpr int kOStride = HD + 4;              // floats in a merged O row
-  constexpr int kBuf = kWarpSlots * HD * 2;     // bytes of a K or V stage
+  constexpr int kBuf = kWarpSlots * row_cols<HD>() * 2;  // bytes a stage
   constexpr int kWarpBytes = kStages * 2 * kBuf;
+  static_assert(kCopies <= row_cols<HD>() / 8, "staged chunks fit a row");
   static_assert((kRows * kOStride + 2 * kRows) * 4 <= kWarpBytes,
                 "a warp's (O, m, l) fits its part of the ring");
-  static_assert(kWarpSlots * kChunks % 32 == 0, "copies per lane");
+  static_assert(kWarpSlots * kCopies % 32 == 0, "copies per lane");
   static_assert((2 * kMaxSplits + 1) * 32 * 4 <= kWarps * kWarpBytes,
                 "the merge's (m, l) fit the ring");
 
@@ -383,16 +422,17 @@ decode_attention_mma_kernel(Args a) {
   unsigned char* ring = smem_raw + warp * kWarpBytes;
   const uint32_t ring_s = smem_addr(ring);
 
-  // this warp's 16 slots of `tile` into stage `st`; zeros past `last`
+  // this warp's 16 slots of `tile` into stage `st`; zeros past `last` and
+  // in a chunk past hd, which Q K^T's last k step reads at hd 120
   auto load = [&](int tile, int st) {
     const int slot0 = tile * kBK + warp * kWarpSlots;
     const uint32_t kd = ring_s + st * 2 * kBuf, vd = kd + kBuf;
 #pragma unroll
-    for (int i = 0; i < kWarpSlots * kChunks / 32; ++i) {
+    for (int i = 0; i < kWarpSlots * kCopies / 32; ++i) {
       const int c = lane + 32 * i;
-      const int r = c / kChunks, ch = c % kChunks;
+      const int r = c / kCopies, ch = c % kCopies;
       const int slot = slot0 + r;
-      const bool in = slot <= last;
+      const bool in = slot <= last && ch < kChunks;
       const long long ko = in ? (long long)slot * a.ks + ch * 8 : 0;
       const long long vo = in ? (long long)slot * a.vs + ch * 8 : 0;
       cp_async16(kd + swz<HD>(r, ch), kbase + ko, in ? 16 : 0);
@@ -405,7 +445,8 @@ decode_attention_mma_kernel(Args a) {
     cp_async_commit();
   }
 
-  // Q as A fragments, once: rows n_rep..kRows-1 are zero
+  // Q as A fragments, once: rows n_rep..kRows-1 are zero, and so are
+  // columns past hd (the second half of the last k step at hd 120)
   const __nv_bfloat16* qbase = static_cast<const __nv_bfloat16*>(a.q) +
                                b * a.qb + (long long)kvh * n_rep * a.qh;
   uint32_t qa[MT][kKSteps][4];
@@ -422,7 +463,9 @@ decode_attention_mma_kernel(Args a) {
         qa[mt][ks][h] =
             ok ? *reinterpret_cast<const uint32_t*>(qr + col) : 0u;
         qa[mt][ks][2 + h] =
-            ok ? *reinterpret_cast<const uint32_t*>(qr + col + 8) : 0u;
+            ok && ks * 16 + 8 < HD
+                ? *reinterpret_cast<const uint32_t*>(qr + col + 8)
+                : 0u;
       }
     }
   }
@@ -523,6 +566,18 @@ decode_attention_mma_kernel(Args a) {
         mma_bf16(o[mt][2 * np], plo[mt], vf[0], vf[1]);
         mma_bf16(o[mt][2 * np + 1], phi[mt], vf[2], vf[3]);
         mma_bf16(o[mt][2 * np + 1], plo[mt], vf[2], vf[3]);
+      }
+    }
+    if constexpr (kNTiles % 2 == 1) {
+      // the last n tile alone (hd 120): (slots 0-7, 8-15) of its chunk
+      uint32_t vf[2];
+      ldsm_x2_trans(vd + swz<HD>((lane & 7) + (((lane >> 3) & 1) << 3),
+                                 kNTiles - 1),
+                    vf);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(o[mt][kNTiles - 1], phi[mt], vf[0], vf[1]);
+        mma_bf16(o[mt][kNTiles - 1], plo[mt], vf[0], vf[1]);
       }
     }
     __syncwarp();   // stage i % kStages is refilled next iteration
@@ -626,7 +681,8 @@ decode_attention_mma_kernel(Args a) {
   }
   __syncthreads();
   constexpr int kQuads = HD / 4;                  // 4-float groups in a row
-  constexpr int kPer = kRows * kQuads / kThreads; // groups a thread merges
+  constexpr int kPer =                            // groups a thread merges
+      (kRows * kQuads + kThreads - 1) / kThreads;
   const int n_quads = n_rep * kQuads;
   float4 acc4[kPer];
 #pragma unroll
@@ -756,12 +812,26 @@ extern "C" int decode_attention_launch(
          kb, ks, kh, vb, vs, vh, ob, oh, 1.0f / sqrtf((float)hd),
          split_tiles, (int*)count};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0 && hd == 64) return launch_fp32<64>(a, b, n_split, st);
-  if (dtype == 0 && hd == 128) return launch_fp32<128>(a, b, n_split, st);
-  if (dtype == 1 && hd == 64)
-    return a.n_rep <= 16 ? launch_mma<64, 1>(a, b, n_split, st)
-                         : launch_mma<64, 2>(a, b, n_split, st);
-  // n_rep <= 16 at hd 128 (n_rep * hd <= 2,048)
-  if (dtype == 1 && hd == 128) return launch_mma<128, 1>(a, b, n_split, st);
+  if (dtype == 0) {
+    switch (hd) {
+      case 64: return launch_fp32<64>(a, b, n_split, st);
+      case 80: return launch_fp32<80>(a, b, n_split, st);
+      case 120: return launch_fp32<120>(a, b, n_split, st);
+      case 128: return launch_fp32<128>(a, b, n_split, st);
+    }
+  } else if (dtype == 1) {
+    // n_rep * hd <= 2,048: up to 32 M rows at hd 64, 25 at 80, 17 at 120,
+    // 16 at 128
+    const bool one = a.n_rep <= 16;
+    switch (hd) {
+      case 64: return one ? launch_mma<64, 1>(a, b, n_split, st)
+                          : launch_mma<64, 2>(a, b, n_split, st);
+      case 80: return one ? launch_mma<80, 1>(a, b, n_split, st)
+                          : launch_mma<80, 2>(a, b, n_split, st);
+      case 120: return one ? launch_mma<120, 1>(a, b, n_split, st)
+                           : launch_mma<120, 2>(a, b, n_split, st);
+      case 128: return launch_mma<128, 1>(a, b, n_split, st);
+    }
+  }
   return (int)cudaErrorInvalidValue;
 }

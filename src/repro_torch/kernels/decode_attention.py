@@ -26,8 +26,19 @@ kernel), so calls on several streams or in a CUDA graph share nothing; for
 fp32 a second kernel merges. The bf16 kernel runs both products on the tensor
 cores (mma.sync, the n_rep heads as M rows), each warp streaming its 16
 slots of every 64-slot tile through a 3-stage cp.async ring; the fp32
-kernel stages fp32 tiles and runs on the CUDA cores. head_dim 64 and 128
-are built, n_rep·hd <= 2,048.
+kernel stages fp32 tiles and runs on the CUDA cores.
+
+head_dim 64, 80, 120 and 128 are built, each read in place (no pad copy),
+with n_rep·hd <= 2,048: n_rep up to 32 at hd 64, 25 at 80, 17 at 120 and
+16 at 128. At 80 and 120 the bf16 kernel stages 128-column rows (Q Kᵀ's
+last k step at 120 reads one zero-filled chunk past hd). H2O-Danube's
+decode (hd 120, n_rep 4) over a full 4,096-slot ring at 8 rows reads
+~126 MB, a bound of ~0.038 ms; Zamba2's (hd 80, n_rep 1) ~336 MB, ~0.100 ms.
+
+A sliding-window ring cache (slot = pos % T) needs no mask of its own: its
+valid slots, age < min(pos + 1, T), are the slots <= min(pos, T - 1) the
+kernel reads, and the softmax does not depend on slot order, so the caller
+passes the raw pos.
 """
 from __future__ import annotations
 
@@ -38,8 +49,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.flash_attention import (BUILT_HEAD_DIMS,
-                                                 DTYPE_CODES, NEG_INF,
+from repro_torch.kernels.flash_attention import (DTYPE_CODES, NEG_INF,
                                                  check_qkv, repeat_kv)
 
 NAME = "decode_attention"
@@ -48,7 +58,7 @@ REPLACES = "src/repro/kernels/decode_attention.py:67"
 ENTRY = "decode_attention_launch"
 ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
             + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
-HEAD_DIMS = BUILT_HEAD_DIMS      # 64 and 128, no pad route
+HEAD_DIMS = (64, 80, 120, 128)   # all built, no pad route
 MAX_OUT = 2048          # n_rep · hd a block's threads hold
 TILE = 64               # slots per tile
 FP32_SPLIT_TILES = 8    # the fp32 kernel's split: 512 slots

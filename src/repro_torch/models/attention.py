@@ -16,10 +16,12 @@ The JAX package's XLA "flash" (`_attend_chunked`, `_online_block` and its
 banded sliding-window variant) waits (ROADMAP.md, A26).
 
 Decode writes the new token's K/V into the cache in place (JAX donates the
-cache buffer and scatters; the port updates the tensor it is given). Without
-a window, decode attends through `kernels.ops.decode_attention`; with a
-window (the ring-buffer mask) it keeps the plain einsum, which no
-configuration of the serving path takes (ROADMAP.md, B4 and A22).
+cache buffer and scatters; the port updates the tensor it is given) and
+attends through `kernels.ops.decode_attention`, with a window too: a
+sliding-window config keeps a ring cache of T = min(max_len, window) slots
+written at pos % T, whose valid slots (JAX's ring mask, age < min(pos + 1,
+T)) are exactly the slots <= min(pos, T - 1) that the kernel reads for the
+raw pos, and the softmax does not depend on slot order.
 """
 from __future__ import annotations
 
@@ -156,8 +158,9 @@ def apply_attention_decode(cfg, p, x, cache, pos, *, window="cfg"):
     updated in place; pos a scalar (every row at one position) or (B,) int
     (each cache row at its own position, the slot-indexed serving layout).
 
-    Sliding-window configs keep a ring-buffer cache of size == window and
-    the plain einsum below; the kernel has no ring mask (ROADMAP.md, B4).
+    Sliding-window configs keep a ring-buffer cache of size == window,
+    written at slot pos % T and read through the same kernel call with the
+    raw pos (the module docstring says why no ring mask is needed).
     Cross-attention decode waits for the audio family (A25).
     """
     if window == "cfg":
@@ -182,22 +185,6 @@ def apply_attention_decode(cfg, p, x, cache, pos, *, window="cfg"):
     cache["k"][rows, slot.long()] = k1[:, 0].to(cache["k"].dtype)
     cache["v"][rows, slot.long()] = v1[:, 0].to(cache["v"].dtype)
     k, v = cache["k"], cache["v"]
-    if window is None:
-        dt = torch.promote_types(q.dtype, k.dtype)
-        o = ops.decode_attention(q.to(dt), k.to(dt), v.to(dt), pos_r)
-        return einsum("bshk,hkd->bsd", o, p["wo"]), cache
-    t, kvh, hd = k.shape[1:]
-    h = q.shape[2]
-    k = _repeat_kv(k, h // kvh)
-    v = _repeat_kv(v, h // kvh)
-    sc = einsum("bshk,bthk->bhst", q, k).float()
-    sc = sc / math.sqrt(hd)
-    kidx = torch.arange(t, device=x.device)[None, :]
-    # ring buffer: valid slots are those written in the last `window`
-    # steps: slot index distance from current pos (per row)
-    age = (pos_r[:, None] % t - kidx) % t
-    valid = age < torch.clamp(pos_r[:, None] + 1, max=t)
-    sc = torch.where(valid[:, None, None, :], sc, torch.full_like(sc, NEG_INF))
-    w = torch.softmax(sc, dim=-1).to(q.dtype)
-    o = einsum("bhst,bthk->bshk", w, v)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    o = ops.decode_attention(q.to(dt), k.to(dt), v.to(dt), pos_r)
     return einsum("bshk,hkd->bsd", o, p["wo"]), cache

@@ -4,17 +4,17 @@ per-request `generate`.
 
   prefill(prompts) -> (next-token logits, cache_slice)
       One full-sequence forward (`models.model.prefill`) whose per-layer
-      cache (K/V, or an SSM layer's conv window and state) comes back as a
-      batch-shaped slice, ready to be written into free slots; on the card
-      its attention runs the `flash_attention` kernel and its SSD core the
-      `ssd_chunk` kernel.
+      cache (K/V, an SSM layer's conv window and state, or a hybrid
+      model's both) comes back as a batch-shaped slice, ready to be written
+      into free slots; on the card its attention runs the
+      `flash_attention` kernel and its SSD core the `ssd_chunk` kernel.
 
   decode_chunk(state, steps) -> state
       Advances ALL slots of the replica together, whichever request owns
       each: every slot carries its own position (`decode_step` takes a (B,)
-      pos, and the `decode_attention` kernel reads each row's; an SSM slot's
-      state needs none), its own sampling key and step, and its own token
-      budget.
+      pos, and the `decode_attention` kernel reads each row's, in a
+      sliding window's ring cache too; an SSM slot's state needs none), its
+      own sampling key and step, and its own token budget.
 
   admit / release
       The slot manager. `admit` writes a prefill slice into free slot
@@ -28,8 +28,9 @@ share the batch — what makes the slot path equal `generate` per request.
 
 JAX jits these phases and donates the slot state; the port runs them
 eagerly and updates the state's tensors in place, returning the same
-object. The engine runs the dense, MoE and SSM families
-(`models.model.check_family`); an MoE model uses the attention cache.
+object. The engine runs the dense, MoE, SSM and hybrid families
+(`models.model.check_family`); an MoE model uses the attention cache, a
+hybrid one the SSM cache and its shared block's attention cache.
 """
 from __future__ import annotations
 
@@ -58,8 +59,10 @@ class SlotState:
     """Per-replica serving state: a slot-indexed cache plus per-slot decode
     bookkeeping. Cache leaves are (layers, slots, ...); the slot axis is the
     model batch axis, so `decode_step` advances every slot in one call."""
-    cache: Any                 # {"attn": {"k", "v"}} or {"ssm": {"conv",
-    #                            "state"}}, leaves (layers, S, ...)
+    cache: Any                 # {"attn": {"k", "v"}}, {"ssm": {"conv",
+    #                            "state"}} or a hybrid's {"ssm",
+    #                            "shared_attn"}, leaves (layers or groups,
+    #                            S, ...)
     last: torch.Tensor         # (S, V) f32 next-token logits
     out: torch.Tensor          # (S, max_out) i32 generated tokens (eos-filled)
     pos: torch.Tensor          # (S,) i32 next decode position
@@ -102,8 +105,8 @@ def _scatter_rows(big, sl, slot_ix) -> None:
 
 
 class Engine:
-    """One replica's generation engine over a dense, MoE or SSM ArchConfig
-    model whose parameters lie on ``device``."""
+    """One replica's generation engine over a dense, MoE, SSM or hybrid
+    ArchConfig model whose parameters lie on ``device``."""
 
     def __init__(self, cfg: ArchConfig, params, *, max_len: int = 512,
                  eos_id: int = 1, temperature: float = 1.0,

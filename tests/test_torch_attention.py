@@ -9,7 +9,8 @@ are the same but taken in another order. GQA ratios 1, 4 and 9, head_dim 64
 and 128, causal, window 32 and non-causal masks, ragged S = T = 200 and
 the bf16 CUDA kernel's tile edges S = 127, 129 and 257 (against `ref` only:
 the Pallas wrapper needs S % bq == 0), and per-row and scalar decode
-positions. The CUDA kernels are held against these plain
+positions, the decode also at head_dim 120 (GQA 4, H2O-Danube's) and 80
+(n_rep 1, Zamba2's shared block). The CUDA kernels are held against these plain
 versions on the card by `tests/test_torch_cuda.py` and `chip_smoke.py`.
 """
 import jax.numpy as jnp
@@ -81,7 +82,8 @@ def test_flash_plain_matches_pallas_interpret(b, s, h, kv, hd, mask):
 
 
 @pytest.mark.parametrize("pos", [[0, 5, 63, 127], 17])
-@pytest.mark.parametrize("h,kv,hd", [(4, 2, 64), (9, 1, 128)])
+@pytest.mark.parametrize("h,kv,hd", [(4, 2, 64), (9, 1, 128), (8, 2, 120),
+                                     (4, 4, 80)])
 def test_decode_plain_matches_ref_and_pallas(pos, h, kv, hd):
     b, t = 4, 128
     q, k, v = qkv(b, 1, t, h, kv, hd, seed=h * hd)
@@ -145,11 +147,12 @@ def test_kernel_wrappers_reject_what_they_do_not_take():
 
 
 # the F4 reproducer's shapes: H2O-Danube-3-4B's 32 query / 8 KV heads of
-# head_dim 120; head_dim 32 is built by neither kernel
+# head_dim 120; head_dim 32 is built by neither kernel (flash_attention
+# takes 80 and 120 through its pad route, decode_attention builds them)
 @pytest.mark.parametrize("name,hd,takes", [
     ("flash_attention", 120, True), ("flash_attention", 80, True),
-    ("flash_attention", 32, False), ("decode_attention", 120, False),
-    ("decode_attention", 80, False), ("decode_attention", 32, False)])
+    ("flash_attention", 32, False), ("decode_attention", 120, True),
+    ("decode_attention", 80, True), ("decode_attention", 32, False)])
 def test_check_qkv_takes_each_kernels_head_dims(name, hd, takes):
     """Each kernel module passes its own head_dims to `check_qkv`."""
     mod = {fa.NAME: fa, dec.NAME: dec}[name]

@@ -286,6 +286,64 @@ def test_decode_attention_row_without_a_slot_is_zero(dev, dtype):
         ATTN_ATOL[dtype]
 
 
+# per (row, head) output vector, as chip_smoke.py holds the attention
+# kernels: max|out - want| <= 1e-2 max|want| + 1e-4
+ROW_RTOL, ROW_ATOL = 1e-2, 1e-4
+# ring positions of a 4,096-slot cache: below T, at T - 1, past it, far
+# past it, and a row with no slot
+RING_POS = [100, 4095, 4200, 9000, -1, 0, 2047, 5000]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,hd", [
+    (32, 8, 120),        # H2O-Danube-3-4B's decode: n_rep 4
+    (32, 32, 80),        # Zamba2-2.7B's shared attention block: n_rep 1
+    (32, 8, 80), (8, 8, 120),
+    (17, 1, 120), (25, 1, 80)])    # the most M rows each takes (two tiles)
+def test_decode_attention_head_dims_80_and_120(dev, dtype, h, kv, hd):
+    """The built head_dims 80 and 120 at ring positions (< T, T - 1, > T,
+    >> T), with a row of pos -1 that must come out as zeros."""
+    b, t = len(RING_POS), 4096
+    q, k, v = _attn_inputs([(b, 1, h, hd), (b, t, kv, hd), (b, t, kv, hd)],
+                           dtype, h + hd, dev)
+    pos = torch.tensor(RING_POS, dtype=torch.int32, device=dev)
+    before = ops.LAUNCHES["decode_attention"]
+    out = ops.decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == before + 1
+    want = dec.decode_attention_plain(q, k, v, pos)
+    live = pos >= 0
+    assert torch.count_nonzero(out[~live]).item() == 0
+    out, want = out[live], want[live]
+    assert out.dtype == dtype
+    assert (out.float() - want.float()).abs().max().item() <= \
+        ATTN_ATOL[dtype]
+    assert fa.row_error_ratio(out, want, ROW_RTOL, ROW_ATOL) <= 1
+
+
+@pytest.mark.parametrize("h,kv,hd", [(32, 8, 120), (32, 32, 80)])
+def test_decode_attention_head_dims_80_and_120_replay_from_a_graph(dev, h, kv,
+                                                                   hd):
+    """One bf16 call at each new head_dim captured in a CUDA graph replays
+    to the eager call's bits."""
+    pos = torch.tensor(RING_POS, dtype=torch.int32, device=dev)
+    b = len(RING_POS)
+    q, k, v = _attn_inputs([(b, 1, h, hd), (b, 4096, kv, hd),
+                            (b, 4096, kv, hd)], torch.bfloat16, hd, dev)
+    first = ops.decode_attention(q, k, v, pos)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = ops.decode_attention(q, k, v, pos)
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, first)
+    want = dec.decode_attention_plain(q, k, v, pos)
+    assert fa.row_error_ratio(first[:4], want[:4], ROW_RTOL, ROW_ATOL) <= 1
+
+
 def test_decode_attention_in_a_cuda_graph_and_on_two_streams(dev):
     """The bf16 kernel's split counters belong to the call: a captured
     graph still replays right after an eager call at a larger B·KV, and
@@ -510,3 +568,37 @@ def test_ssm_serving_path_runs_ssd_chunk(dev):
     last_c, _ = M.prefill(cfg, card, {"tokens": prompts}, 128, device=dev)
     last, _ = M.prefill(cfg, params, {"tokens": prompts}, 128, device="cpu")
     assert (last_c.cpu() - last).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "zamba2-2.7b"])
+def test_windowed_serving_path_runs_decode_attention(dev, arch):
+    """The reduced H2O-Danube (sliding window) and Zamba2 (hybrid) in
+    float32, with prompts that fill their 64-slot rings: `generate`'s
+    prefill launches one flash kernel per attention block (and Zamba2 one
+    ssd_chunk per layer), each decode step, on the wrapped ring, one decode
+    kernel per attention block; the logits match the CPU's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    card = convert.params_to(params, dev)
+    prompts = np.random.default_rng(0).integers(2, cfg.vocab, (3, 64))
+    blocks = (cfg.n_layers // cfg.shared_attn_period
+              if cfg.family == "hybrid" else cfg.n_layers)
+    ops.reset_launches()
+    Engine(cfg, card, max_len=128, device=dev).generate(prompts, 6)
+    assert ops.LAUNCHES["flash_attention"] == blocks
+    assert ops.LAUNCHES["decode_attention"] == blocks * 5
+    assert ops.LAUNCHES["ssd_chunk"] == (cfg.n_layers
+                                         if cfg.family == "hybrid" else 0)
+    last_c, cache_c = M.prefill(cfg, card, {"tokens": prompts}, 128,
+                                device=dev)
+    last, cache = M.prefill(cfg, params, {"tokens": prompts}, 128,
+                            device="cpu")
+    assert (last_c.cpu() - last).abs().max().item() <= 1e-4
+    nxt = last.argmax(-1)[:, None]
+    pos = torch.tensor([64, 100, 63], dtype=torch.int32)
+    step_c, _ = M.decode_step(cfg, card, nxt, cache_c, pos.to(dev),
+                              device=dev)
+    step, _ = M.decode_step(cfg, params, nxt, cache, pos, device="cpu")
+    assert (step_c.cpu() - step).abs().max().item() <= 1e-4

@@ -18,7 +18,13 @@ CPU.
 * Both again for the reduced OLMoE (the MoE family) at its configs'
   capacity factor: dispatch is grouped by batch row, so a slot's tokens
   never compete with another slot's for an expert's capacity.
+* Both again for the reduced Zamba2 (the hybrid family) at 4 layers, two
+  groups each with its own shared-attention ring cache of 64 slots;
+  `generate` from prompts of 64 tokens (two SSD chunks), so every decode
+  step's attention wraps the ring.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -87,11 +93,11 @@ def test_sample_matches_jax(temperature):
                                atol=1e-5, rtol=0)
 
 
-def reduced_pair(arch):
+def reduced_pair(arch, **changes):
     """(JAX cfg, JAX params, port cfg, port params) of ``arch`` reduced,
-    JAX's weights."""
-    jcfg = jget_config(arch).reduced()
-    cfg = get_config(arch).reduced()
+    with ``changes`` to its fields, JAX's weights."""
+    jcfg = dataclasses.replace(jget_config(arch).reduced(), **changes)
+    cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
     params = convert.params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
                                      device="cpu")
@@ -108,6 +114,12 @@ def engines():
 def moe_engines():
     """The reduced OLMoE."""
     return reduced_pair("olmoe-1b-7b")
+
+
+@pytest.fixture(scope="module")
+def hybrid_engines():
+    """The reduced Zamba2 at 4 layers: two groups of the shared block."""
+    return reduced_pair("zamba2-2.7b", n_layers=4)
 
 
 def first_difference(a, b):
@@ -130,9 +142,10 @@ def port_scores(cfg, params, prompts, tokens, row, step, seed, temperature):
     return (lg + prng.gumbel(key, lg.shape)).numpy()
 
 
-def check_generate(engines, temperature):
+def check_generate(engines, temperature, prompt_len=10):
     jcfg, jparams, cfg, params = engines
-    prompts = np.random.default_rng(7).integers(2, cfg.vocab, (3, 10)
+    prompts = np.random.default_rng(7).integers(2, cfg.vocab,
+                                                (3, prompt_len)
                                                 ).astype(np.int32)
     max_new, seed = 12, 5
     want = jengine.Engine(jcfg, jparams, max_len=MAX_LEN,
@@ -164,6 +177,11 @@ def test_generate_matches_reference(engines, temperature):
 @pytest.mark.parametrize("temperature", [0.7, 1e-4])
 def test_moe_generate_matches_reference(moe_engines, temperature):
     check_generate(moe_engines, temperature)
+
+
+@pytest.mark.parametrize("temperature", [0.7, 1e-4])
+def test_hybrid_generate_matches_reference(hybrid_engines, temperature):
+    check_generate(hybrid_engines, temperature, prompt_len=64)
 
 
 def harvest(state, slots, max_new):
@@ -206,6 +224,10 @@ def test_slot_api_matches_generate_per_request(engines):
 
 def test_moe_slot_api_matches_generate_per_request(moe_engines):
     check_slots(moe_engines)
+
+
+def test_hybrid_slot_api_matches_generate_per_request(hybrid_engines):
+    check_slots(hybrid_engines)
 
 
 def test_admit_checks_are_real_exceptions(engines):

@@ -7,8 +7,9 @@ SwiGLU, θ = 5e5); two reduced MoE ones: OLMoE (4 experts, top 2, n_rep 1)
 and Arctic (the same with a dense residual MLP, n_rep 4), at the configs'
 capacity factor, so their prefills may drop entries as JAX's do, and with
 `forward`'s load-balance loss held at 1e-6; and H2O-Danube's sliding window
-with a ring cache shorter than the prompt, for the decode path that keeps
-the plain einsum.
+with a ring cache shorter than the prompt, whose decode runs through
+`ops.decode_attention` (its plain version here) with the raw pos.
+The hybrid family (Zamba2) has its own file, `tests/test_torch_hybrid.py`.
 In float32 the two frameworks differ only in the order of
 their sums (matmuls, softmax, norms), so logits and caches are held at
 atol = rtol = 2e-5, the tolerance `tests/test_engine.py` holds prefill to;
@@ -182,7 +183,6 @@ def test_prefill_then_decode_matches_forward(pair):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("zamba2-2.7b", "A23"),
     ("qwen2-vl-72b", "A24"), ("whisper-large-v3", "A25")])
 def test_other_families_raise_naming_their_item(arch, item):
     cfg = get_config(arch).reduced()
@@ -204,8 +204,9 @@ def test_apply_moe_ep_raises_naming_a18():
 def test_sliding_window_ring_cache_matches_reference():
     """A sliding-window dense config (H2O-Danube, window 64 reduced) with a
     cache shorter than the prompt: prefill keeps the last T tokens in the
-    ring, and decode (the plain einsum with the ring mask, not the kernel)
-    matches JAX at per-row positions past the ring's end."""
+    ring, and decode, which runs through `ops.decode_attention` with the
+    raw pos (no ring mask; its plain version on the CPU), matches JAX's
+    ring-masked einsum at per-row positions past the ring's end."""
     jcfg = jget_config("h2o-danube-3-4b").reduced()
     cfg = get_config("h2o-danube-3-4b").reduced()
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(1))

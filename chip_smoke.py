@@ -26,7 +26,16 @@ Phases, each of which fails the run on any mismatch:
                 products, beside the fp32 CUDA-core figure), and for the
                 attention kernels the time of PyTorch's
                 `scaled_dot_product_attention` on the same inputs;
-                ssd_chunk's main shape is also held to 1e-5
+                ssd_chunk's main shape is also held to 1e-5. The attention
+                kernels also run, in bf16 and fp32, at Whisper-large-v3's
+                shapes (its encoder's non-causal self-attention over 1,500
+                frames, its cross-attention of 64 prompt tokens against
+                them, its decode steps: cross over all 1,500 slots at pos
+                1,499, self over its 448-slot context with a row of pos -1),
+                at non-causal S != T pairs on the tile edges (S 7 / T 300,
+                S 129 / T 77, S 300 / T 129), and at Qwen2-VL-72B's prefill
+                (4 x 2,304) and decode step (64 / 8 heads of 128); those of
+                the two models are timed too
   4. decision   a 4096-tenant mixed fleet runs 16 rounds on the card; from
                 its state one `_tenant_act` runs on the card (kernels) and
                 on the CPU (plain versions) with the same keys; the CPU's
@@ -91,6 +100,25 @@ Phases, each of which fails the run on any mismatch:
                 ring) against `forward` over all 4,352
  19. hybrid-card-cpu  phase 10 for the reduced Zamba2 with a prompt of 64
                 and max_len 256: its 64-slot ring wraps in decode
+ 20. serve-audio  phase 8's serving path for Whisper-large-v3 at full width
+                (32 encoder and 32 decoder layers, 20 / 20 heads of 64;
+                bf16) with `enc_frames` 1,500 and its 448-token context:
+                `generate` on 4 prompts of 4 tokens for 224 new ones, then 8
+                slots (prompts of 4 and 64 tokens, 128 steps); each prefill
+                launches 96 `flash_attention` (encoder, self, cross), each
+                decode step 64 `decode_attention` (self, cross), and nothing
+                else
+ 21. audio-consistency  phase 9 for Whisper with random frames (seed 1):
+                two 64-token prompts, one decode step
+ 22. audio-card-cpu  phase 10 for the reduced Whisper, frames from a seed
+ 23. serve-vlm  phase 8's serving path for Qwen2-VL-72B at every published
+                width over 20 of its 80 layers (one of four pipeline
+                stages; 40 GB of bf16 weights): prompts of 2,048 tokens
+                behind 256 patch embeddings, 20 `flash_attention` a prefill
+                and 20 `decode_attention` a step
+ 24. vlm-consistency  phase 9 for that Qwen2-VL with random patch
+                embeddings: the decode step at `prefill_len` (1,152)
+ 25. vlm-card-cpu  phase 10 for the reduced Qwen2-VL
 
 The next-to-last line of output is one JSON object describing every kernel;
 the last is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -105,6 +133,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -133,7 +162,15 @@ WINDOW_ARCH = "h2o-danube-3-4b"  # head_dim 120, sliding window (phase 10b)
 SSM_ARCH = "mamba2-780m"         # the SSM serving path's model (phase 11)
 MOE_ARCH = "olmoe-1b-7b"         # the MoE serving path's model (phase 14)
 HYBRID_ARCH = "zamba2-2.7b"      # the hybrid serving path's model (phase 17)
+AUDIO_ARCH = "whisper-large-v3"  # the audio serving path's model (phase 20)
+VLM_ARCH = "qwen2-vl-72b"        # the VLM serving path's model (phase 23)
+VLM_LAYERS = 20                  # one of four pipeline stages of its 80
 SERVE_MAX_LEN = 4096
+# phase 3's timed attention shapes: the serving paths' (bf16)
+FLASH_TIMED = ("main", "olmoe", "zamba2", "whisper-enc", "whisper-cross",
+               "qwen2-vl")
+DECODE_TIMED = ("main", "olmoe", "h2o", "zamba2", "whisper-cross",
+                "whisper-self", "qwen2-vl")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
@@ -167,6 +204,20 @@ SSD_CASES = [("main", 4, 8, 256, 48, 64, 128, torch.bfloat16, 0.0, 1, 1),
              ("P32", 2, 2, 256, 24, 32, 128, torch.bfloat16, 0.0, 1, 1),
              ("range", 2, 4, 256, 48, 64, 128, torch.bfloat16, 0.0, 1e2,
               1e-3)]
+
+
+class FlashCase(NamedTuple):
+    """A `flash_attention` case of phase 3: T keys, S by default."""
+    label: str
+    b: int
+    s: int
+    h: int
+    kv: int
+    hd: int
+    causal: bool
+    window: Optional[int]
+    dtype: torch.dtype
+    t: Optional[int] = None
 
 
 def fail(msg: str) -> None:
@@ -741,7 +792,7 @@ def phase_attention_kernels(ops, dev):
     """flash_attention and decode_attention against their plain versions at
     the serving path's shapes and at small, ragged and masked ones; returns
     per-kernel measurements at the main shapes."""
-    import torch.nn.functional as F
+    from torch.nn.functional import scaled_dot_product_attention as sdpa_fn
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -751,41 +802,55 @@ def phase_attention_kernels(ops, dev):
 
     results = {}
     bf16, f32 = torch.bfloat16, torch.float32
-    # (label, B, S, H, KV, hd, causal, window, dtype); "main" is a prefill
-    # of 4 prompts of 2,048 tokens at StarCoder2-7B's heads; S129 to win100
-    # sit on the bf16 kernel's 128-row and 128-key tile edges; "h2o" is
-    # H2O-Danube-3-4B's prefill of 4 x 1,024 (head_dim 120, window 4,096),
-    # h2o to hd80 take the pad route; "olmoe" is OLMoE-1B-7B's prefill of 4
-    # x 2,048 at n_rep 1 (16 / 16 heads of 128), timed as "main" is, and
-    # "zamba2" Zamba2-2.7B's shared block's (32 / 32 heads of 80, window
-    # 4,096, the pad route), timed too
-    cases = [("main", 4, 2048, 36, 4, 128, True, None, bf16),
-             ("olmoe", 4, 2048, 16, 16, 128, True, None, bf16),
-             ("zamba2", 4, 2048, 32, 32, 80, True, 4096, bf16),
-             ("B1S128", 1, 128, 4, 4, 64, True, None, f32),
-             ("B1S128", 1, 128, 4, 4, 64, True, None, bf16),
-             ("ragged", 2, 200, 9, 1, 128, True, None, f32),
-             ("ragged", 2, 200, 9, 1, 128, True, None, bf16),
-             ("win32", 1, 256, 4, 2, 64, True, 32, f32),
-             ("win32", 1, 256, 4, 2, 64, True, 32, bf16),
-             ("full", 1, 128, 2, 2, 64, False, None, f32),
-             ("fullwin", 2, 77, 8, 2, 128, False, 40, bf16),
-             ("S1025", 2, 1025, 36, 4, 128, True, None, bf16),
-             ("S129", 1, 129, 9, 1, 128, True, None, bf16),
-             ("S257", 1, 257, 9, 1, 128, True, None, bf16),
-             ("S127", 2, 127, 8, 2, 64, True, None, bf16),
-             ("S255", 1, 255, 4, 4, 64, False, None, bf16),
-             ("win100", 1, 300, 8, 2, 128, True, 100, bf16),
-             ("h2o", 4, 1024, 32, 8, 120, True, 4096, bf16),
-             ("h2o", 4, 1024, 32, 8, 120, True, 4096, f32),
-             ("ragged120", 2, 200, 32, 8, 120, True, None, bf16),
-             ("ragged120", 2, 200, 32, 8, 120, True, None, f32),
-             ("hd80", 2, 129, 32, 32, 80, True, None, bf16),
-             ("hd80", 2, 129, 32, 32, 80, True, None, f32)]
+    # FlashCase(label, B, S, H, KV, hd, causal, window, dtype, T = S);
+    # "main" is a prefill of 4 prompts of 2,048 tokens at StarCoder2-7B's
+    # heads; S129 to win100 sit on the bf16 kernel's 128-row and 128-key
+    # tile edges; "h2o" is H2O-Danube-3-4B's prefill of 4 x 1,024 (head_dim
+    # 120, window 4,096), h2o to hd80 take the pad route; "olmoe" is
+    # OLMoE-1B-7B's prefill of 4 x 2,048 at n_rep 1 (16 / 16 heads of 128),
+    # timed as "main" is, and "zamba2" Zamba2-2.7B's shared block's (32 /
+    # 32 heads of 80, window 4,096, the pad route), timed too; from
+    # "whisper-enc" on, the shapes of Whisper-large-v3 (20 / 20 heads of
+    # 64: its encoder over 1,500 frames and its decoder's cross-attention,
+    # 64 prompt tokens against them, both non-causal), S != T pairs on the
+    # tile edges, and Qwen2-VL-72B's prefill of 4 x (256 vision + 2,048
+    # text) positions (64 / 8 heads of 128), the three timed
+    F = FlashCase
+    cases = [F("main", 4, 2048, 36, 4, 128, True, None, bf16),
+             F("olmoe", 4, 2048, 16, 16, 128, True, None, bf16),
+             F("zamba2", 4, 2048, 32, 32, 80, True, 4096, bf16),
+             F("B1S128", 1, 128, 4, 4, 64, True, None, f32),
+             F("B1S128", 1, 128, 4, 4, 64, True, None, bf16),
+             F("ragged", 2, 200, 9, 1, 128, True, None, f32),
+             F("ragged", 2, 200, 9, 1, 128, True, None, bf16),
+             F("win32", 1, 256, 4, 2, 64, True, 32, f32),
+             F("win32", 1, 256, 4, 2, 64, True, 32, bf16),
+             F("full", 1, 128, 2, 2, 64, False, None, f32),
+             F("fullwin", 2, 77, 8, 2, 128, False, 40, bf16),
+             F("S1025", 2, 1025, 36, 4, 128, True, None, bf16),
+             F("S129", 1, 129, 9, 1, 128, True, None, bf16),
+             F("S257", 1, 257, 9, 1, 128, True, None, bf16),
+             F("S127", 2, 127, 8, 2, 64, True, None, bf16),
+             F("S255", 1, 255, 4, 4, 64, False, None, bf16),
+             F("win100", 1, 300, 8, 2, 128, True, 100, bf16),
+             F("h2o", 4, 1024, 32, 8, 120, True, 4096, bf16),
+             F("h2o", 4, 1024, 32, 8, 120, True, 4096, f32),
+             F("ragged120", 2, 200, 32, 8, 120, True, None, bf16),
+             F("ragged120", 2, 200, 32, 8, 120, True, None, f32),
+             F("hd80", 2, 129, 32, 32, 80, True, None, bf16),
+             F("hd80", 2, 129, 32, 32, 80, True, None, f32)]
+    cases += [F(*c[:8], dt, *c[8:]) for c in [
+        ("whisper-enc", 4, 1500, 20, 20, 64, False, None),
+        ("whisper-cross", 4, 64, 20, 20, 64, False, None, 1500),
+        ("S7T300", 2, 7, 8, 2, 64, False, None, 300),
+        ("S129T77", 1, 129, 9, 1, 128, False, None, 77),
+        ("S300T129", 1, 300, 8, 2, 128, False, None, 129),
+        ("qwen2-vl", 4, 2304, 64, 8, 128, True, None)] for dt in (bf16, f32)]
     errs, worst, main, worst_row, shapes = [], 0.0, None, 0.0, {}
-    for label, b, s, h, kv, hd, causal, window, dt in cases:
+    for label, b, s, h, kv, hd, causal, window, dt, t in cases:
+        t = t or s
         q = rnd((b, s, h, hd), dt)
-        k, v = rnd((b, s, kv, hd), dt), rnd((b, s, kv, hd), dt)
+        k, v = rnd((b, t, kv, hd), dt), rnd((b, t, kv, hd), dt)
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
         want = fa.flash_attention_plain(q, k, v, causal=causal,
                                         window=window)
@@ -800,22 +865,22 @@ def phase_attention_kernels(ops, dev):
         if not row <= 1:
             fail(f"flash_attention {label} {dt}: a (row, head) vector is "
                  f"{row:.3g} x its per-row tolerance")
-        print(f"flash_attention {label:9s} B={b} S={s} H={h} KV={kv} "
+        print(f"flash_attention {label:9s} B={b} S={s} T={t} H={h} KV={kv} "
               f"hd={hd} causal={causal} window={window} {dt}: "
               f"max|diff|={err:.3g} row ratio={row:.3g}", flush=True)
         if label == "h2o" and dt == bf16:
             flash_pad_route(ops, fa, q, k, v, window)
-        if label in ("main", "olmoe", "zamba2"):
+        if label in FLASH_TIMED and dt == bf16:
             # (a window of 4,096 over 2,048 keys masks nothing beyond the
             # causal mask, so SDPA's is_causal is the same function)
-            ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+            ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
                                                      window=window))
             plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
-                q, k, v, causal=True, window=window), iters=3, warmup=1)
+                q, k, v, causal=causal, window=window), iters=3, warmup=1)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
-            nbytes, flops = flash_cost(q, k, True)
+            lib_ms = cuda_ms(lambda: sdpa_fn(
+                qt, kt, vt, is_causal=causal, enable_gqa=True))
+            nbytes, flops = flash_cost(q, k, causal)
             b_ms, b_by = bound(nbytes, flops, BF16_OPS_PER_S)
             if label == "main":
                 main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -847,8 +912,13 @@ def phase_attention_kernels(ops, dev):
     # the sliding-window decode steps of H2O-Danube-3-4B and Zamba2-2.7B's
     # shared block over a full 4,096-slot ring (every pos at or past T - 1),
     # timed, and their "-ring" cases hold ring positions below T, at T - 1,
-    # past T and far past it, with a row of pos -1 (held to zeros)
+    # past T and far past it, with a row of pos -1 (held to zeros); the
+    # last three are Whisper-large-v3's cross-attention step (every row at
+    # pos T - 1 over 1,500 encoder frames: all of them), its self-attention
+    # step over its 448-slot context with a row of pos -1, and Qwen2-VL-72B's
+    # step (64 / 8 heads of 128), each timed in bf16
     main_pos = [1100, 1110, 1120, 1130, 3040, 3041, 3047, 3055]
+    whisper_pos = [3, 67, 130, 200, 227, 300, 447, -1]
     full_ring = [4095, 4096, 4200, 5000, 6143, 7000, 8191, 9000]
     ring = [100, 4095, 4200, 9000, -1, 0, 2047, 5000]
     cases = [("main", 8, 4096, 36, 4, 128, main_pos, bf16),
@@ -873,6 +943,10 @@ def phase_attention_kernels(ops, dev):
              ("edge", 3, 4096, 36, 4, 128, [255, 256, 257], bf16),
              ("noslot", 2, 4096, 36, 4, 128, [-1, 100], f32),
              ("noslot", 2, 4096, 36, 4, 128, [-1, 100], bf16)]
+    cases += [(*c, dt) for c in [
+        ("whisper-cross", 8, 1500, 20, 20, 64, [1499] * 8),
+        ("whisper-self", 8, 448, 20, 20, 64, whisper_pos),
+        ("qwen2-vl", 8, 4096, 64, 8, 128, main_pos)] for dt in (bf16, f32)]
     worst, main, worst_row, shapes = 0.0, None, 0.0, {}
     for label, b, t, h, kv, hd, pos, dt in cases:
         q = rnd((b, 1, h, hd), dt)
@@ -899,7 +973,7 @@ def phase_attention_kernels(ops, dev):
         print(f"decode_attention {label:7s} B={b} T={t} H={h} KV={kv} "
               f"hd={hd} pos={pos} {dt}: max|diff|={err:.3g} "
               f"row ratio={row:.3g}", flush=True)
-        if label in ("main", "olmoe", "h2o", "zamba2"):
+        if label in DECODE_TIMED and dt == bf16:
 
             def call():
                 return ops.decode_attention(q, k, v, pos_t)
@@ -911,7 +985,7 @@ def phase_attention_kernels(ops, dev):
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
             def sdpa():
-                return F.scaled_dot_product_attention(
+                return sdpa_fn(
                     qt, kt, vt, attn_mask=mask[:, None, None, :],
                     enable_gqa=True)
             lib_ms = cuda_ms(sdpa, iters=100)
@@ -1042,7 +1116,9 @@ def phase_ssd_kernel(ops, dev):
 def serve_kernels(cfg):
     """The kernels one prefill and one decode step of ``cfg`` launch, per
     kernel (every other kernel must stay at 0): a hybrid model's shared
-    block runs once per group of `shared_attn_period` SSM layers."""
+    block runs once per group of `shared_attn_period` SSM layers; an audio
+    model's prefill attends in every encoder layer and twice (self, cross)
+    in every decoder layer, and so does its decode step in the decoder."""
     layers = cfg.n_layers
     if cfg.family == "ssm":
         return {"ssd_chunk": layers}, {}
@@ -1050,7 +1126,26 @@ def serve_kernels(cfg):
         groups = layers // cfg.shared_attn_period
         return ({"ssd_chunk": layers, "flash_attention": groups},
                 {"decode_attention": groups})
+    if cfg.family == "audio":
+        return ({"flash_attention": cfg.n_enc_layers + 2 * layers},
+                {"decode_attention": 2 * layers})
     return {"flash_attention": layers}, {"decode_attention": layers}
+
+
+def stub_inputs(cfg, b: int, s: int, seed: int, dtype, dev):
+    """A VLM's patch embeddings (1/8 of a prompt of ``s`` tokens) or an
+    audio model's 1,500 frames, N(0, 1) drawn with numpy from ``seed``, in
+    ``dtype`` on ``dev``; no entries for the other families."""
+    from repro_torch.models import model as M
+    if cfg.family == "vlm":
+        name, n = "vision_embeds", max(s // M.VLM_VISION_FRACTION, 1)
+    elif cfg.family == "audio":
+        name, n = "frames", M.WHISPER_ENC_FRAMES
+    else:
+        return {}
+    x = np.random.default_rng(seed).standard_normal((b, n, cfg.d_model),
+                                                    dtype=np.float32)
+    return {name: torch.from_numpy(x).to(dev, dtype)}
 
 
 def expect_launches(ops, want, what: str) -> None:
@@ -1070,17 +1165,24 @@ def numel(tree) -> int:
     return tree.numel()
 
 
-def full_width(arch: str, dev, tag: str):
-    """(cfg, params): ``arch`` at its published width, bf16 weights from
-    `init_params` seed 0, counted against the schema."""
+def full_width(arch: str, dev, tag: str, layers: Optional[int] = None):
+    """(cfg, params): ``arch`` at its published width (cut to ``layers``
+    layers if given), bf16 weights from `init_params` seed 0, counted
+    against the schema."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
     cfg = get_config(arch)
+    cut = ""
+    if layers is not None:
+        cut = (f" cut to {layers} of its {cfg.n_layers} layers (one of "
+               f"{cfg.n_layers // layers} pipeline stages), every width as "
+               "published,")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     torch.cuda.synchronize()
     n = numel(params)                 # a hybrid's `shared` block included
-    print(f"{tag}: {cfg.name} {n:,} parameters (bf16, "
+    print(f"{tag}: {cfg.name}{cut} {n:,} parameters (bf16, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB) initialised in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if n != M.param_count(cfg):
@@ -1088,12 +1190,35 @@ def full_width(arch: str, dev, tag: str):
     return cfg, params
 
 
-def phase_serve(ops, dev, arch: str, long_len: int, tag: str):
+class Traffic(NamedTuple):
+    """A serving phase's requests: `generate` on 4 prompts of ``gen_len``
+    tokens for ``gen_new`` new ones, then two batches of 4 slot requests,
+    (prompt tokens, decode steps after its admission) each, with a budget
+    of ``max_out`` tokens a slot; a traced prefill of 4 x ``trace_len``."""
+    slots: Tuple[Tuple[int, int], ...]
+    gen_len: int = 2048
+    gen_new: int = 64
+    max_out: int = 64
+    trace_len: int = 1024
+    max_len: int = SERVE_MAX_LEN
+
+
+# StarCoder2's traffic, and the others' with their long slot prompt
+SERVE_TRAFFIC = Traffic(slots=((1024, 16), (3000, 48)))
+LONG_TRAFFIC = Traffic(slots=((1024, 16), (3072, 48)))
+# speech-to-text over 30-second windows: 1,500 frames, short prompts (task
+# and language tokens), up to Whisper's 448-token decoder context
+AUDIO_TRAFFIC = Traffic(slots=((4, 64), (64, 64)), gen_len=4, gen_new=224,
+                        max_out=128, trace_len=64, max_len=448)
+
+
+def phase_serve(ops, dev, arch: str, tag: str, traffic: Traffic,
+                layers: Optional[int] = None):
     """A serving path at full width; returns (launches, params, cfg)."""
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Engine
-    cfg, params = full_width(arch, dev, tag)
-    eng = Engine(cfg, params, max_len=SERVE_MAX_LEN, temperature=0.7,
+    cfg, params = full_width(arch, dev, tag, layers)
+    eng = Engine(cfg, params, max_len=traffic.max_len, temperature=0.7,
                  dtype=torch.bfloat16, device=dev)
     rng = np.random.default_rng(0)
     per_prefill, per_step = serve_kernels(cfg)
@@ -1115,8 +1240,9 @@ def phase_serve(ops, dev, arch: str, long_len: int, tag: str):
         if not torch.isfinite(lg).all():
             fail(f"{what}: non-finite logits")
 
-    # ---- generate: 4 prompts of 2,048 tokens, 64 new tokens each
-    prompts = rng.integers(0, cfg.vocab, (4, 2048))
+    # ---- generate: 4 prompts, gen_new new tokens each
+    glen, gnew = traffic.gen_len, traffic.gen_new
+    prompts = rng.integers(0, cfg.vocab, (4, glen))
     ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1126,24 +1252,24 @@ def phase_serve(ops, dev, arch: str, long_len: int, tag: str):
     check_logits(lg, "generate prefill")
     expect(1, 0, "prefill")
     t0 = time.perf_counter()
-    res = eng.generate(prompts, 64)
+    res = eng.generate(prompts, gnew)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
-    expect(2, 63, "generate (one prefill, 63 decode steps)")
+    expect(2, gnew - 1, f"generate (one prefill, {gnew - 1} decode steps)")
     check_tokens(res.tokens, "generate")
     if not np.isfinite(res.logprobs).all():
         fail("generate: non-finite logprobs")
-    print(f"{tag}: generate 4 x 2048 prompt tokens, 64 new: {t_gen:.2f} s; "
-          f"prefill alone {t_pre * 1e3:.1f} ms = "
-          f"{4 * 2048 / t_pre:,.0f} prompt tokens/s; decode "
-          f"{(t_gen - t_pre) / 63 * 1e3:.2f} ms/step; mean logprob "
+    print(f"{tag}: generate 4 x {glen} prompt tokens, {gnew} new: "
+          f"{t_gen:.2f} s; prefill alone {t_pre * 1e3:.1f} ms = "
+          f"{4 * glen / t_pre:,.0f} prompt tokens/s; decode "
+          f"{(t_gen - t_pre) / (gnew - 1) * 1e3:.2f} ms/step; mean logprob "
           f"{res.logprobs.mean():.3f}", flush=True)
 
     # ---- the slot API: 8 slots, two admitted batches
-    state = eng.init_slots(8, max_out=64)
-    prefills, steps = 2, 63
-    for slots, plen, chunk, seed in (([0, 1, 2, 3], 1024, 16, 1),
-                                     ([4, 5, 6, 7], long_len, 48, 2)):
+    state = eng.init_slots(8, max_out=traffic.max_out)
+    prefills, steps = 2, gnew - 1
+    for j, (plen, chunk) in enumerate(traffic.slots):
+        slots = list(range(4 * j, 4 * j + 4))
         p = rng.integers(0, cfg.vocab, (4, plen))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1153,8 +1279,8 @@ def phase_serve(ops, dev, arch: str, long_len: int, tag: str):
         prefills += 1
         expect(prefills, steps, f"slot prefill {plen}")
         check_logits(lg, f"slot prefill {plen}")
-        state = eng.admit(state, slots, lg, sl, prompt_len=plen, max_new=64,
-                          seed=seed)
+        state = eng.admit(state, slots, lg, sl, prompt_len=plen,
+                          max_new=traffic.max_out, seed=j + 1)
         del lg, sl
         t0 = time.perf_counter()
         state = eng.decode_chunk(state, chunk)
@@ -1172,7 +1298,9 @@ def phase_serve(ops, dev, arch: str, long_len: int, tag: str):
     n_out = state.n_out.cpu().tolist()
     finished = state.finished.cpu().tolist()
     for i, (got, done) in enumerate(zip(n_out, finished)):
-        budget = 64 if i < 4 else 48      # tokens the two chunks allow
+        # the tokens the chunks after the slot's admission allow
+        budget = min(traffic.max_out,
+                     sum(c for _, c in traffic.slots[i // 4:]))
         if got > budget or (got < budget and not done):
             fail(f"slot {i}: {got} tokens of {budget}, finished={done}")
     state = eng.release(state, list(range(8)))
@@ -1183,8 +1311,8 @@ def phase_serve(ops, dev, arch: str, long_len: int, tag: str):
           f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
           flush=True)
     # where the time goes (printed, not gated; after the launch counts):
-    # one 4 x 1,024 prefill, then 3 decode steps over the 8 slots' cache
-    p = rng.integers(0, cfg.vocab, (4, 1024))
+    # one 4 x trace_len prefill, then 3 decode steps over the 8 slots' cache
+    p = rng.integers(0, cfg.vocab, (4, traffic.trace_len))
     device_trace(f"{tag}-profile", "prefill", 1, lambda: eng.prefill(p))
     tok = torch.full((8, 1), eng.eos_id, dtype=torch.int64, device=dev)
     device_trace(f"{tag}-profile", "decode step", 3, lambda: [
@@ -1203,24 +1331,29 @@ def phase_consistency(ops, params, cfg, dev, tag: str = "consistency",
     wrapped) against `forward` over the prompt_len + 1 tokens (flash over
     the whole sequence; its window then holds the ring's positions). Both
     flows round their activations to bf16 at every matmul and norm, in
-    another order and at other shapes, through every layer of the model."""
+    another order and at other shapes, through every layer of the model.
+    A VLM's prompt carries random patch embeddings ahead of it, so its step
+    is at `prefill_len`; an audio model's, 1,500 random frames (`serve_kernels`
+    counts its launches: encoder, self and cross attention)."""
     from repro_torch.models import model as M
     rng = np.random.default_rng(1)
     toks = rng.integers(0, cfg.vocab, (2, prompt_len))
+    extra = stub_inputs(cfg, 2, prompt_len, 1, torch.bfloat16, dev)
+    pos = M.prefill_len(cfg, prompt_len)
     per_prefill, per_step = serve_kernels(cfg)
     ops.reset_launches()
-    last, cache = M.prefill(cfg, params, {"tokens": toks}, 2 * prompt_len,
-                            device=dev)
+    last, cache = M.prefill(cfg, params, {"tokens": toks, **extra},
+                            2 * prompt_len, device=dev)
     torch.cuda.synchronize()
     expect_launches(ops, per_prefill, f"{tag}: prefill")
     nxt = last.float().argmax(-1)[:, None]
     ops.reset_launches()
-    lg, _ = M.decode_step(cfg, params, nxt, cache, prompt_len, device=dev)
+    lg, _ = M.decode_step(cfg, params, nxt, cache, pos, device=dev)
     torch.cuda.synchronize()
-    expect_launches(ops, per_step, f"{tag}: decode step at pos {prompt_len}")
+    expect_launches(ops, per_step, f"{tag}: decode step at pos {pos}")
     del cache
     ext = np.concatenate([toks, nxt.cpu().numpy()], axis=1)
-    full, _ = M.forward(cfg, params, {"tokens": ext}, device=dev)
+    full, _ = M.forward(cfg, params, {"tokens": ext, **extra}, device=dev)
     full = full.float()
     d_pre = (last.float() - full[:, -2]).abs().max().item()
     d_dec = (lg[:, 0].float() - full[:, -1]).abs().max().item()
@@ -1228,7 +1361,7 @@ def phase_consistency(ops, params, cfg, dev, tag: str = "consistency",
     agree = int((lg[:, 0].float().argmax(-1) == full[:, -1].argmax(-1))
                 .sum())
     print(f"{tag}: {cfg.name} ({cfg.n_layers} layers, head_dim "
-          f"{cfg.head_dim}, prompt {prompt_len}): launches "
+          f"{cfg.head_dim}, prompt {prompt_len}, decode at {pos}): launches "
           f"{per_prefill} in the prefill, {per_step} in the decode step; "
           f"max|logit| {scale:.3f}; prefill vs "
           f"forward max|diff| {d_pre:.4g}; decode step vs forward max|diff| "
@@ -1323,7 +1456,9 @@ def phase_ssm_consistency(ops, params, cfg, dev, tag: str = "ssm-consistency",
 def phase_card_cpu(dev, arch: str, prompt_len: int, tag: str) -> None:
     """A reduced config, float32, TF32 off: the same weights through
     prefill, a decode step and `Engine.generate` on the card (kernels) and
-    on the CPU (plain versions)."""
+    on the CPU (plain versions); a VLM's patch embeddings and an audio
+    model's frames drawn from a seed for the prefill (the engines give
+    zeros)."""
     from repro_torch import convert
     from repro_torch.configs.base import get_config
     from repro_torch.models import model as M
@@ -1333,15 +1468,17 @@ def phase_card_cpu(dev, arch: str, prompt_len: int, tag: str) -> None:
     card = convert.params_to(params, dev)
     prompts = np.random.default_rng(2).integers(2, cfg.vocab,
                                                 (3, prompt_len))
-    last_c, cache_c = M.prefill(cfg, card, {"tokens": prompts}, 256,
-                                device=dev)
-    last, cache = M.prefill(cfg, params, {"tokens": prompts}, 256,
+    extra = stub_inputs(cfg, 3, prompt_len, 2, torch.float32, "cpu")
+    last_c, cache_c = M.prefill(
+        cfg, card, {"tokens": prompts,
+                    **{k: v.to(dev) for k, v in extra.items()}}, 256,
+        device=dev)
+    last, cache = M.prefill(cfg, params, {"tokens": prompts, **extra}, 256,
                             device="cpu")
     nxt = last.argmax(-1)[:, None]
-    step_c, _ = M.decode_step(cfg, card, nxt, cache_c, prompt_len,
-                              device=dev)
-    step, _ = M.decode_step(cfg, params, nxt, cache, prompt_len,
-                            device="cpu")
+    pos = M.prefill_len(cfg, prompt_len)
+    step_c, _ = M.decode_step(cfg, card, nxt, cache_c, pos, device=dev)
+    step, _ = M.decode_step(cfg, params, nxt, cache, pos, device="cpu")
     d_pre = (last_c.cpu() - last).abs().max().item()
     d_dec = (step_c.cpu() - step).abs().max().item()
     res_c = Engine(cfg, card, max_len=256, temperature=0.7,
@@ -1384,8 +1521,8 @@ def main() -> None:
         fail(f"a kernel of the main path never launched: {launches}")
     phase_profile(pool, dev, cfg, state, PROFILE_ROUNDS)
     phase_quickstart(pool, ops, dev, QUICKSTART_ROUNDS)
-    serve_launches, params, cfg = phase_serve(ops, dev, SERVE_ARCH, 3000,
-                                              "serve")
+    serve_launches, params, cfg = phase_serve(ops, dev, SERVE_ARCH, "serve",
+                                              SERVE_TRAFFIC)
     for name in ("flash_attention", "decode_attention"):
         if serve_launches[name] == 0:
             fail(f"{name} never launched on the serving path")
@@ -1396,8 +1533,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_card_cpu(dev, SERVE_ARCH, 200, "card-cpu")
     phase_window(ops, dev)
-    ssm_launches, params, cfg = phase_serve(ops, dev, SSM_ARCH, 3072,
-                                            "serve-ssm")
+    ssm_launches, params, cfg = phase_serve(ops, dev, SSM_ARCH, "serve-ssm",
+                                            LONG_TRAFFIC)
     if ssm_launches["ssd_chunk"] == 0:
         fail("ssd_chunk never launched on the SSM serving path")
     launches["ssd_chunk"] = ssm_launches["ssd_chunk"]
@@ -1405,8 +1542,8 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
     phase_card_cpu(dev, SSM_ARCH, 64, "ssm-card-cpu")
-    moe_launches, params, cfg = phase_serve(ops, dev, MOE_ARCH, 3000,
-                                            "serve-moe")
+    moe_launches, params, cfg = phase_serve(ops, dev, MOE_ARCH, "serve-moe",
+                                            SERVE_TRAFFIC)
     for name in ("flash_attention", "decode_attention"):
         if moe_launches[name] == 0:
             fail(f"{name} never launched on the MoE serving path")
@@ -1417,8 +1554,8 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
     phase_card_cpu(dev, MOE_ARCH, 200, "moe-card-cpu")
-    hybrid_launches, params, cfg = phase_serve(ops, dev, HYBRID_ARCH, 3072,
-                                               "serve-hybrid")
+    hybrid_launches, params, cfg = phase_serve(ops, dev, HYBRID_ARCH,
+                                               "serve-hybrid", LONG_TRAFFIC)
     for name in ("ssd_chunk", "flash_attention", "decode_attention"):
         if hybrid_launches[name] == 0:
             fail(f"{name} never launched on the hybrid serving path")
@@ -1427,6 +1564,26 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
     phase_card_cpu(dev, HYBRID_ARCH, 64, "hybrid-card-cpu")
+    audio_launches, params, cfg = phase_serve(ops, dev, AUDIO_ARCH,
+                                              "serve-audio", AUDIO_TRAFFIC)
+    for name in ("flash_attention", "decode_attention"):
+        if audio_launches[name] == 0:
+            fail(f"{name} never launched on the audio serving path")
+    phase_consistency(ops, params, cfg, dev, "audio-consistency",
+                      prompt_len=64)
+    del params
+    torch.cuda.empty_cache()
+    phase_card_cpu(dev, AUDIO_ARCH, 64, "audio-card-cpu")
+    vlm_launches, params, cfg = phase_serve(ops, dev, VLM_ARCH, "serve-vlm",
+                                            SERVE_TRAFFIC, layers=VLM_LAYERS)
+    for name in ("flash_attention", "decode_attention"):
+        if vlm_launches[name] == 0:
+            fail(f"{name} never launched on the VLM serving path")
+    phase_consistency(ops, params, cfg, dev, "vlm-consistency",
+                      prompt_len=1024)
+    del params
+    torch.cuda.empty_cache()
+    phase_card_cpu(dev, VLM_ARCH, 200, "vlm-card-cpu")
 
     kernels = []
     for name, mod in ops.KERNELS.items():

@@ -6,10 +6,9 @@ imported, for all six families:
   dense | moe | hybrid (mamba2 + shared attention) | audio (enc-dec) |
   vlm (M-RoPE decoder) | ssm (mamba2)
 
-The port's model code runs the ``dense`` family; the others raise
-`NotImplementedError` in `repro_torch.models.model`. ``reduced()`` returns
-the CPU-test variant of the same family (2 layers, d_model <= 256,
-<= 4 experts).
+The port's model code (`repro_torch.models.model`) runs all six.
+``reduced()`` returns the CPU-test variant of the same family (2 layers,
+d_model <= 256, <= 4 experts).
 """
 from __future__ import annotations
 

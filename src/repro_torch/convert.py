@@ -79,13 +79,16 @@ def _tensor(x, dev) -> torch.Tensor:
 def params_from_jax(cfg, tree, device="cuda"):
     """The JAX package's `models.model.init_params` tree (dicts of arrays,
     layers stacked on a leading axis) -> the port's parameters on
-    ``device``: the same leaves, with ``layers`` unstacked into a list of
-    per-layer dicts ({"ln1", "attn", "ln2", "mlp"} for the dense family;
-    {"ln1", "attn", "ln2", "moe": {"router", "wi_gate", "wi_up", "wo"}}
-    for the MoE family, with "mlp" beside it for a dense residual;
+    ``device``: the same leaves, with ``layers`` (and an audio model's
+    ``enc_layers``) unstacked into a list of per-layer dicts ({"ln1",
+    "attn", "ln2", "mlp"} for the dense and VLM families and the audio
+    encoder; {"ln1", "attn", "ln2", "moe": {"router", "wi_gate", "wi_up",
+    "wo"}} for the MoE family, with "mlp" beside it for a dense residual;
     {"ln1", "ssm": {"w_in", "conv_w", "conv_b", "a_log", "d_skip",
-    "dt_bias", "norm", "w_out"}} for the SSM and hybrid families), and a
-    hybrid model's ``shared`` dense block as it is."""
+    "dt_bias", "norm", "w_out"}} for the SSM and hybrid families; {"ln1",
+    "self", "ln2", "cross", "ln3", "mlp"} for the audio decoder), and the
+    other subtrees as they are: a hybrid model's ``shared`` dense block, a
+    VLM's ``vision_proj``, an audio model's ``enc_lnf``."""
     check_family(cfg)
     dev = resolve_device(device)
 
@@ -94,13 +97,10 @@ def params_from_jax(cfg, tree, device="cuda"):
             return {k: across(v, index) for k, v in sub.items()}
         return _tensor(sub if index is None else np.asarray(sub)[index], dev)
 
-    params = {"embed": across(tree["embed"]),
-              "layers": [across(tree["layers"], i)
-                         for i in range(cfg.n_layers)]}
-    if "shared" in tree:
-        params["shared"] = across(tree["shared"])
-    params["lnf"] = across(tree["lnf"])
-    return params
+    n_layers = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers}
+    return {name: ([across(sub, i) for i in range(n_layers[name])]
+                   if name in n_layers else across(sub))
+            for name, sub in tree.items()}
 
 
 def params_to(params, device):

@@ -22,6 +22,14 @@ sliding-window config keeps a ring cache of T = min(max_len, window) slots
 written at pos % T, whose valid slots (JAX's ring mask, age < min(pos + 1,
 T)) are exactly the slots <= min(pos, T - 1) that the kernel reads for the
 raw pos, and the softmax does not depend on slot order.
+
+Cross-attention (the audio family's decoder) takes its K/V from the
+encoder output and applies no rope. Its decode writes nothing and masks
+nothing (JAX's ``cross=True``: an unmasked softmax over all T slots); the
+port calls the same `decode_attention` with pos = T - 1 for every row, and
+since the kernel reads the slots <= min(pos, T - 1), that is every slot.
+The cross K/V are formed once per prompt (`models.model.fill_cross_caches`)
+and read in place by the prefill's cross-attention and by every step.
 """
 from __future__ import annotations
 
@@ -57,15 +65,19 @@ def attention_schema(cfg, d_model: Optional[int] = None):
     return s
 
 
+def _proj(x, w, b=None):
+    """x (B,S,D) -> (B,S,heads,hd) through w (D,heads,hd), plus b."""
+    y = einsum("bsd,dhk->bshk", x, w)
+    return y if b is None else y + b
+
+
+def kv_of(p, x):
+    """The (K, V) an attention's weights form from x (B,T,D)."""
+    return _proj(x, p["wk"], p.get("bk")), _proj(x, p["wv"], p.get("bv"))
+
+
 def _qkv(cfg, p, x):
-    q = einsum("bsd,dhk->bshk", x, p["wq"])
-    k = einsum("btd,dhk->bthk", x, p["wk"])
-    v = einsum("btd,dhk->bthk", x, p["wv"])
-    if "bq" in p:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
-    return q, k, v
+    return (_proj(x, p["wq"], p.get("bq")),) + kv_of(p, x)
 
 
 # ------------------------------------------------------------------ naive
@@ -111,7 +123,7 @@ def attend(q, k, v, *, causal=True, window=None, q_offset=0, impl="auto"):
 
 def apply_attention(cfg, p, x, positions, *, causal=True, window="cfg",
                     impl="auto"):
-    """Full-sequence self-attention (train / prefill)."""
+    """Full-sequence self-attention (train / prefill / encoder)."""
     if window == "cfg":
         window = cfg.sliding_window
     q, k, v = _qkv(cfg, p, x)
@@ -119,6 +131,17 @@ def apply_attention(cfg, p, x, positions, *, causal=True, window="cfg",
         rot = rope_mod.positional(cfg, positions)
         q, k = rot(q), rot(k)
     o = attend(q, k, v, causal=causal, window=window, impl=impl)
+    return einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+def apply_cross_attention(cfg, p, x, cross, *, impl="auto"):
+    """Cross-attention (JAX's `apply_attention(..., xkv=enc)`: non-causal,
+    no window, no rope) over K/V already formed from the encoder output:
+    ``cross`` is {"k", "v"} (B,T,KV,hd), `kv_of` the encoder output or one
+    layer's slice of the cross cache, read in place."""
+    q = _proj(x, p["wq"], p.get("bq"))
+    o = attend(q, cross["k"], cross["v"], causal=False, window=None,
+               impl=impl)
     return einsum("bshk,hkd->bsd", o, p["wo"])
 
 
@@ -153,37 +176,36 @@ def apply_attention_prefill(cfg, p, x, positions, cache, *, causal=True,
 
 
 # ------------------------------------------------------------------ decode
-def apply_attention_decode(cfg, p, x, cache, pos, *, window="cfg"):
-    """One-token self-attention decode. x (B,1,D); cache k/v (B,T,KV,hd),
-    updated in place; pos a scalar (every row at one position) or (B,) int
-    (each cache row at its own position, the slot-indexed serving layout).
+def apply_attention_decode(cfg, p, x, cache, pos, *, window="cfg",
+                           cross=False):
+    """One-token decode. x (B,1,D); cache k/v (B,T,KV,hd), updated in
+    place; pos a scalar (every row at one position) or (B,) int (each cache
+    row at its own position, the slot-indexed serving layout).
 
     Sliding-window configs keep a ring-buffer cache of size == window,
     written at slot pos % T and read through the same kernel call with the
     raw pos (the module docstring says why no ring mask is needed).
-    Cross-attention decode waits for the audio family (A25).
+    cross=True: the cache holds the encoder's K/V and is not written; the
+    caller passes pos = T - 1 for every row, so the kernel reads every slot
+    (no mask), made once a step rather than once a layer.
     """
     if window == "cfg":
         window = cfg.sliding_window
     b = x.shape[0]
-    pos_r = torch.as_tensor(pos, device=x.device).to(torch.int32).expand(b)
-    q = einsum("bsd,dhk->bshk", x, p["wq"])
-    if "bq" in p:
-        q = q + p["bq"]
-    k1 = einsum("bsd,dhk->bshk", x, p["wk"])
-    v1 = einsum("bsd,dhk->bshk", x, p["wv"])
-    if "bk" in p:
-        k1, v1 = k1 + p["bk"], v1 + p["bv"]
-    if cfg.rope != "none":
-        rot = rope_mod.positional(cfg, pos_r[:, None])
-        q, k1 = rot(q), rot(k1)
     t = cache["k"].shape[1]
-    # a frozen row past the cache end writes its last slot, as JAX's
-    # dynamic_update_slice clamps
-    slot = (pos_r % t if window is not None else pos_r).clamp(max=t - 1)
-    rows = torch.arange(b, device=x.device)
-    cache["k"][rows, slot.long()] = k1[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot.long()] = v1[:, 0].to(cache["v"].dtype)
+    q = _proj(x, p["wq"], p.get("bq"))
+    pos_r = torch.as_tensor(pos, device=x.device).to(torch.int32).expand(b)
+    if not cross:
+        k1, v1 = kv_of(p, x)
+        if cfg.rope != "none":
+            rot = rope_mod.positional(cfg, pos_r[:, None])
+            q, k1 = rot(q), rot(k1)
+        # a frozen row past the cache end writes its last slot, as JAX's
+        # dynamic_update_slice clamps
+        slot = (pos_r % t if window is not None else pos_r).clamp(max=t - 1)
+        rows = torch.arange(b, device=x.device)
+        cache["k"][rows, slot.long()] = k1[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, slot.long()] = v1[:, 0].to(cache["v"].dtype)
     k, v = cache["k"], cache["v"]
     dt = torch.promote_types(q.dtype, k.dtype)
     o = ops.decode_attention(q.to(dt), k.to(dt), v.to(dt), pos_r)

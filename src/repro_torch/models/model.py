@@ -1,23 +1,35 @@
 """Model assembly (port of `repro/models/model.py`): schema, parameter
-init, forward, prefill and the decode step, for the dense, MoE, SSM and
-hybrid families.
+init, forward, prefill and the decode step, for the six families: dense,
+MoE, SSM, hybrid, VLM and audio (encoder-decoder).
 
 Parameters are a plain dict with the JAX tree's names: ``embed`` ({"tok",
-"unembed"}), ``layers`` and ``lnf``, and for the hybrid family ``shared``,
-its one weight-shared dense block. Where JAX stacks the layers on a
-leading axis and runs `lax.scan`, the port keeps ``layers`` as a list of
-per-layer dicts and runs a Python loop. The decode cache keeps JAX's
-stacked layout, {"attn": {"k", "v"}} with leaves (layers, B, T, KV, hd) for
-the dense and MoE families, {"ssm": {"conv": (layers, B, 3, conv_ch),
-"state": (layers, B, H, P, N) fp32}} for the SSM family, and both
-{"ssm": ...} and {"shared_attn": {"k", "v"}} with leaves (groups, B, T, KV,
-hd) for the hybrid family, and is updated in place (JAX donates it), one
-layer's view at a time.
+"unembed"}), ``layers`` and ``lnf``; for the hybrid family ``shared``, its
+one weight-shared dense block; for the VLM family ``vision_proj``; for the
+audio family ``enc_layers`` and ``enc_lnf``. Where JAX stacks the layers
+on a leading axis and runs `lax.scan`, the port keeps ``layers`` (and
+``enc_layers``) as a list of per-layer dicts and runs a Python loop. The
+decode cache keeps JAX's stacked layout, {"attn": {"k", "v"}} with leaves
+(layers, B, T, KV, hd) for the dense, MoE and VLM families, {"ssm":
+{"conv": (layers, B, 3, conv_ch), "state": (layers, B, H, P, N) fp32}} for
+the SSM family, both {"ssm": ...} and {"shared_attn": {"k", "v"}} with
+leaves (groups, B, T, KV, hd) for the hybrid family, and {"self", "cross"}
+(each {"k", "v"} of (layers, B, T, KV, hd)) for the audio family, and is
+updated in place (JAX donates it), one layer's view at a time.
 
 A hybrid model (Zamba2) runs its SSM layers in groups of
 ``shared_attn_period``; each group starts with the shared dense block,
 which keeps one attention cache per group (the same weights see other
 activations in every group).
+
+A VLM (Qwen2-VL) projects ``inputs["vision_embeds"]`` (B, S_vis, D), the
+stub vision tower's patch embeddings, through ``vision_proj`` and puts them
+ahead of the text, so a prompt of S tokens fills `prefill_len` positions;
+its M-RoPE sees one position id per token (t = h = w), as JAX's backbone
+does. An audio model (Whisper) runs a bidirectional encoder over
+``inputs["frames"]`` (B, S_enc, D), the stub conv front end's frames, plus
+a sinusoid; the decoder adds a sinusoid at each token's position, and each
+decoder layer attends to its own K/V of the encoder output, formed once
+(`fill_cross_caches`).
 
 An MoE layer routes at the config's capacity factor in `forward`,
 `prefill` and `decode_step` alike, as JAX does: its capacity follows the
@@ -25,9 +37,8 @@ call's sequence length, so `forward` over S + 1 tokens may drop other
 entries than a prefill over S (a decode step of one token drops none).
 
 Every entry point takes ``device=`` (default "cuda") and raises without
-that device. The other families raise `NotImplementedError` naming their
-ROADMAP.md item; so do `loss_fn`, `input_specs`, `abstract_params` and
-`param_axes`, which are not ported yet (A26).
+that device. `loss_fn`, `input_specs`, `abstract_params` and
+`param_axes` are not ported yet (ROADMAP.md, A26).
 """
 from __future__ import annotations
 
@@ -38,27 +49,24 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (apply_norm, count_from_schema,
+from repro_torch.models.layers import (ParamSpec, apply_norm,
+                                       count_from_schema, einsum,
                                        embed_schema, embed_tokens,
                                        init_from_schema, norm_schema,
                                        stack_layers, torch_dtype, unembed)
 
+WHISPER_ENC_FRAMES = 1500     # 30 s of audio at 50 Hz after the conv stub
 VLM_VISION_FRACTION = 8       # 1/8 of the sequence is patch embeddings
-PORTED = ("dense", "moe", "ssm", "hybrid")
-_WAITING = {"vlm": "A24 (M-RoPE and the vision projection)",
-            "audio": "A25 (the encoder-decoder)"}
+PORTED = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise unless the port runs ``cfg``'s family (dense, MoE, SSM or
-    hybrid, for now)."""
+    """Raise unless the port runs ``cfg``'s family."""
     if cfg.family not in PORTED:
-        item = _WAITING.get(cfg.family, "none")
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP.md, {item})")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
 # ===================================================================== schema
@@ -67,16 +75,29 @@ def _layer_schema(cfg: ArchConfig):
         return blocks.ssm_block_schema(cfg)
     if cfg.family == "moe":
         return blocks.moe_block_schema(cfg)
+    if cfg.family == "audio":
+        return blocks.decoder_block_schema(cfg)
     return blocks.dense_block_schema(cfg)
+
+
+def _vision_proj_schema(cfg: ArchConfig):
+    return {"w": ParamSpec((cfg.d_model, cfg.d_model), ("embed_fsdp", None),
+                           std=0.02)}
 
 
 def model_schema(cfg: ArchConfig):
     """The JAX schema (layers stacked on a leading axis), for counting."""
     check_family(cfg)
-    s = {"embed": embed_schema(cfg),
-         "layers": stack_layers(_layer_schema(cfg), cfg.n_layers)}
+    s = {"embed": embed_schema(cfg)}
+    if cfg.family == "audio":
+        s["enc_layers"] = stack_layers(blocks.dense_block_schema(cfg),
+                                       cfg.n_enc_layers)
+        s["enc_lnf"] = norm_schema(cfg)
+    s["layers"] = stack_layers(_layer_schema(cfg), cfg.n_layers)
     if _shared_period(cfg):
         s["shared"] = blocks.dense_block_schema(cfg)
+    if cfg.family == "vlm":
+        s["vision_proj"] = _vision_proj_schema(cfg)
     s["lnf"] = norm_schema(cfg)
     return s
 
@@ -103,14 +124,22 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, *,
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
+
+    def init(schema):
+        return init_from_schema(schema, gen, dev, dt)
+
+    params = {"embed": init(embed_schema(cfg))}
+    if cfg.family == "audio":
+        params["enc_layers"] = [init(blocks.dense_block_schema(cfg))
+                                for _ in range(cfg.n_enc_layers)]
+        params["enc_lnf"] = init(norm_schema(cfg))
     layer = _layer_schema(cfg)
-    params = {"embed": init_from_schema(embed_schema(cfg), gen, dev, dt),
-              "layers": [init_from_schema(layer, gen, dev, dt)
-                         for _ in range(cfg.n_layers)]}
+    params["layers"] = [init(layer) for _ in range(cfg.n_layers)]
     if _shared_period(cfg):
-        params["shared"] = init_from_schema(blocks.dense_block_schema(cfg),
-                                            gen, dev, dt)
-    params["lnf"] = init_from_schema(norm_schema(cfg), gen, dev, dt)
+        params["shared"] = init(blocks.dense_block_schema(cfg))
+    if cfg.family == "vlm":
+        params["vision_proj"] = init(_vision_proj_schema(cfg))
+    params["lnf"] = init(norm_schema(cfg))
     return params
 
 
@@ -139,6 +168,13 @@ def _device_inputs(params, tokens, device) -> Tuple[torch.device,
     return dev, tokens.long()
 
 
+def _on(x, dev) -> torch.Tensor:
+    """An input array (numpy or tensor) as a tensor on ``dev``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    return torch.as_tensor(np.asarray(x), device=dev)
+
+
 def _positions(b: int, s: int, dev) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
 
@@ -148,14 +184,64 @@ def _shared_view(cache, g: int):
     return {k: leaf[g] for k, leaf in cache["shared_attn"].items()}
 
 
+def _layer_view(kv, i: int):
+    """Layer ``i``'s {"k", "v"} of a stacked attention cache."""
+    return {k: leaf[i] for k, leaf in kv.items()}
+
+
+def sinusoid_at(pos, d: int) -> torch.Tensor:
+    """pos (...) int -> (..., d) float32: sin then cos of the float32 angle
+    pos / 10000^(2i/d), i < d/2, as JAX computes it with x64 off. The power
+    and the sin and cos are taken in float64 and rounded once, as XLA's
+    float32 results are correctly rounded there (ATen's float32 pow is an
+    ulp off on some exponents); on the CPU through numpy, on the calling
+    thread: ATen's sin on a large CPU tensor has returned one thread's
+    share off by ~1e-4 at Whisper's angles of ~1,500 rad, in some runs
+    only (as its exp did in ROADMAP F5)."""
+    e = 2 * torch.arange(d // 2, device=pos.device) / d       # float32
+    div = torch.pow(10_000.0, e.double()).float()
+    ang = (pos[..., None].float() / div).double()
+    if ang.device.type == "cpu":
+        a = ang.numpy()
+        return torch.from_numpy(np.concatenate([np.sin(a), np.cos(a)],
+                                               axis=-1)).float()
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).float()
+
+
+def sinusoid(seq: int, d: int, offset=0, *, device="cuda") -> torch.Tensor:
+    """(seq, d) float32: `sinusoid_at` positions offset .. offset + seq - 1."""
+    pos = torch.arange(seq, dtype=torch.int32, device=resolve_device(device))
+    return sinusoid_at(pos + offset, d)
+
+
+def _embed(cfg: ArchConfig, params, inputs, tokens, dev):
+    """Token embeddings; a VLM's projected patch embeddings ahead of them."""
+    x = embed_tokens(cfg, params["embed"], tokens)
+    if cfg.family == "vlm":
+        vis = einsum("bsd,de->bse", _on(inputs["vision_embeds"], dev),
+                     params["vision_proj"]["w"])
+        x = torch.cat([vis.to(x.dtype), x], dim=1)
+    return x
+
+
+def _embed_decoder(cfg: ArchConfig, params, tokens):
+    """An audio decoder's token embeddings plus the sinusoid."""
+    x = embed_tokens(cfg, params["embed"], tokens)
+    return x + sinusoid(x.shape[1], cfg.d_model,
+                        device=x.device).to(x.dtype)[None]
+
+
 # ===================================================================== forward
 def forward(cfg: ArchConfig, params, inputs: Dict[str, Any], *,
             impl: str = "auto", device="cuda"):
     """Full-sequence forward. Returns (logits (B,S,V), aux_loss): the sum of
-    the MoE layers' load-balance losses in fp32, 0.0 for other families."""
+    the MoE layers' load-balance losses in fp32, 0.0 for other families. A
+    VLM's logits cover the vision prefix too."""
     check_family(cfg)
     dev, tokens = _device_inputs(params, inputs["tokens"], device)
-    x = embed_tokens(cfg, params["embed"], tokens)
+    if cfg.family == "audio":
+        return _forward_audio(cfg, params, inputs, tokens, dev, impl=impl)
+    x = _embed(cfg, params, inputs, tokens, dev)
     b, s, _ = x.shape
     positions = _positions(b, s, dev)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
@@ -177,6 +263,50 @@ def forward(cfg: ArchConfig, params, inputs: Dict[str, Any], *,
     return logits, aux
 
 
+def encode_audio(cfg: ArchConfig, params, frames, *, impl: str = "auto",
+                 device="cuda"):
+    """Run the (bidirectional) audio encoder over stub frame embeddings
+    (B, S_enc, D) -> (B, S_enc, D)."""
+    dev = resolve_device(device)
+    frames = _on(frames, dev)
+    b, s_enc, _ = frames.shape
+    enc = frames + sinusoid(s_enc, cfg.d_model, device=dev).to(
+        frames.dtype)[None]
+    pos_enc = _positions(b, s_enc, dev)
+    for p_l in params["enc_layers"]:
+        enc = blocks.apply_dense_block(cfg, p_l, enc, pos_enc, causal=False,
+                                       impl=impl, window=None)
+    return apply_norm(cfg, params["enc_lnf"], enc)
+
+
+def fill_cross_caches(cfg: ArchConfig, params, enc):
+    """The cross-attention K/V cache from the encoder output enc (B, T, D):
+    {"k", "v"} of (layers, B, T, KV, hd) in enc's dtype, each layer's
+    formed once and written into its slice (the enc-dec prefill hand-off
+    the serving path uses before `decode_step`)."""
+    b, t, _ = enc.shape
+    shape = (cfg.n_layers, b, t, cfg.n_kv_heads, cfg.head_dim)
+    cross = {n: torch.empty(shape, dtype=enc.dtype, device=enc.device)
+             for n in ("k", "v")}
+    for i, p_l in enumerate(params["layers"]):
+        k, v = attn_mod.kv_of(p_l["cross"], enc)
+        cross["k"][i].copy_(k)
+        cross["v"][i].copy_(v)
+    return cross
+
+
+def _forward_audio(cfg, params, inputs, tokens, dev, *, impl="auto"):
+    enc = encode_audio(cfg, params, inputs["frames"], impl=impl, device=dev)
+    x = _embed_decoder(cfg, params, tokens)
+    b, s, _ = x.shape
+    pos_dec = _positions(b, s, dev)
+    for p_l in params["layers"]:
+        x = blocks.apply_decoder_block(cfg, p_l, x, enc, pos_dec, impl=impl)
+    x = apply_norm(cfg, params["lnf"], x)
+    return (unembed(cfg, params["embed"], x),
+            torch.zeros((), dtype=torch.float32, device=dev))
+
+
 # ===================================================================== prefill
 def prefill_len(cfg: ArchConfig, prompt_len: int) -> int:
     """Number of cache positions a prompt of ``prompt_len`` tokens occupies
@@ -191,18 +321,22 @@ def prefill(cfg: ArchConfig, params, inputs: Dict[str, Any], max_len: int, *,
     """Prompt forward that also emits the decode cache.
 
     One full-sequence forward over the prompt whose per-layer K/V
-    (attention; per group for a hybrid model's shared block) and final SSD
-    state and conv window (Mamba2) are written
-    straight into a fresh ``max_len``-long cache (the structure
-    `init_decode_caches` allocates and `decode_step` advances), so
-    generation continues from position `prefill_len(cfg, S)` without
-    replaying the prompt. An SSM prompt's length must be a multiple of the
-    chunk or shorter than it.
+    (attention; per group for a hybrid model's shared block), final SSD
+    state and conv window (Mamba2) and cross-attention K/V (enc-dec) are
+    written straight into a fresh ``max_len``-long cache (the structure
+    `init_decode_caches` allocates and `decode_step` advances; an audio
+    model's cross cache has as many slots as ``inputs["frames"]`` has
+    frames), so generation continues from position `prefill_len(cfg, S)`
+    without replaying the prompt. An SSM prompt's length must be a
+    multiple of the chunk or shorter than it.
 
     Returns (last_logits (B, V) — the next-token logits, cache)."""
     check_family(cfg)
     dev, tokens = _device_inputs(params, inputs["tokens"], device)
-    x = embed_tokens(cfg, params["embed"], tokens)
+    if cfg.family == "audio":
+        return _prefill_audio(cfg, params, inputs, tokens, dev, max_len,
+                              impl=impl, cache_dtype=cache_dtype)
+    x = _embed(cfg, params, inputs, tokens, dev)
     b, s, _ = x.shape
     positions = _positions(b, s, dev)
     cdt = torch_dtype(cache_dtype) if cache_dtype is not None else x.dtype
@@ -222,41 +356,80 @@ def prefill(cfg: ArchConfig, params, inputs: Dict[str, Any], max_len: int, *,
     else:
         block = (blocks.apply_moe_block_prefill if cfg.family == "moe" else
                  blocks.apply_dense_block_prefill)
-        ck, cv = cache["attn"]["k"], cache["attn"]["v"]
         for i, p_l in enumerate(params["layers"]):
-            x, _ = block(cfg, p_l, x, positions, {"k": ck[i], "v": cv[i]},
-                         impl=impl)
+            x, _ = block(cfg, p_l, x, positions,
+                         _layer_view(cache["attn"], i), impl=impl)
+    x = apply_norm(cfg, params["lnf"], x[:, -1:])
+    return unembed(cfg, params["embed"], x)[:, 0], cache
+
+
+def _prefill_audio(cfg, params, inputs, tokens, dev, max_len, *,
+                   impl="auto", cache_dtype=None):
+    enc = encode_audio(cfg, params, inputs["frames"], impl=impl, device=dev)
+    cross = fill_cross_caches(cfg, params, enc)
+    x = _embed_decoder(cfg, params, tokens)
+    b, s, _ = x.shape
+    positions = _positions(b, s, dev)
+    cdt = torch_dtype(cache_dtype) if cache_dtype is not None else x.dtype
+    self_c = _attn_cache(cfg, cfg.n_layers, b, _attn_len(cfg, max_len), cdt,
+                         dev)
+    for i, p_l in enumerate(params["layers"]):
+        x, _ = blocks.apply_decoder_block_prefill(
+            cfg, p_l, x, _layer_view(cross, i), positions,
+            _layer_view(self_c, i), impl=impl)
+    # JAX casts the cross K/V to the cache's dtype: a copy only if it
+    # differs from the activations'
+    cache = {"self": self_c,
+             "cross": {k: v.to(cdt) for k, v in cross.items()}}
     x = apply_norm(cfg, params["lnf"], x[:, -1:])
     return unembed(cfg, params["embed"], x)[:, 0], cache
 
 
 # ===================================================================== decode
+def _attn_len(cfg: ArchConfig, max_len: int) -> int:
+    w = cfg.sliding_window
+    return min(max_len, w) if w else max_len
+
+
+def _attn_cache(cfg: ArchConfig, n: int, batch: int, t: int, dtype, dev):
+    shape = (n, batch, t, cfg.n_kv_heads, cfg.head_dim)
+    return {k: torch.zeros(shape, dtype=dtype, device=dev)
+            for k in ("k", "v")}
+
+
 def init_decode_caches(cfg: ArchConfig, batch: int, max_len: int,
-                       dtype=torch.bfloat16, *, device="cuda"):
+                       dtype=torch.bfloat16, *, device="cuda",
+                       enc_frames: int = WHISPER_ENC_FRAMES):
     """The zeroed decode cache: {"attn": {"k", "v"}} with leaves (layers,
     batch, T, KV, hd), T = max_len (or the window); for the SSM family
     {"ssm": {"conv", "state"}} with leaves (layers, batch, ...), the state
     in fp32 whatever ``dtype``; for the hybrid family both, as "ssm" and
-    "shared_attn" with (groups, batch, T, KV, hd) leaves. JAX also returns
-    the leaves' logical axes; sharding waits (A18), so the port returns the
-    cache alone."""
+    "shared_attn" with (groups, batch, T, KV, hd) leaves; for the audio
+    family {"self", "cross"}, the cross cache at ``enc_frames`` slots (JAX's
+    WHISPER_ENC_FRAMES; its engine sizes the slot cache from `prefill`'s
+    output instead, at its own frame count). JAX also returns the leaves'
+    logical axes; sharding waits (A18), so the port returns the cache
+    alone."""
     check_family(cfg)
     dev = resolve_device(device)
+    dt = torch_dtype(dtype)
+    attn_len = _attn_len(cfg, max_len)
+    if cfg.family == "audio":
+        return {"self": _attn_cache(cfg, cfg.n_layers, batch, attn_len, dt,
+                                    dev),
+                "cross": _attn_cache(cfg, cfg.n_layers, batch, enc_frames, dt,
+                                     dev)}
     cache = {}
     if cfg.family in ("ssm", "hybrid"):
-        one = ssm_mod.init_ssm_cache(cfg, batch, torch_dtype(dtype), dev)
+        one = ssm_mod.init_ssm_cache(cfg, batch, dt, dev)
         cache["ssm"] = {k: torch.zeros((cfg.n_layers,) + tuple(v.shape),
                                        dtype=v.dtype, device=dev)
                         for k, v in one.items()}
     if cfg.family != "ssm":
-        w = cfg.sliding_window
-        attn_len = min(max_len, w) if w else max_len
         period = _shared_period(cfg)
         n = cfg.n_layers // period if period else cfg.n_layers
-        shape = (n, batch, attn_len, cfg.n_kv_heads, cfg.head_dim)
-        cache["shared_attn" if period else "attn"] = {
-            k: torch.zeros(shape, dtype=torch_dtype(dtype), device=dev)
-            for k in ("k", "v")}
+        cache["shared_attn" if period else "attn"] = _attn_cache(
+            cfg, n, batch, attn_len, dt, dev)
     return cache
 
 
@@ -267,13 +440,24 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, pos, *,
     Per-row ``pos`` is the slot-cache layout: every row advances at its own
     position, so one step serves slots admitted at different times (an SSM
     layer carries its position in its state and ignores ``pos``; a hybrid
-    model's shared attention block reads it). The cache is updated in
-    place. Returns (logits (B,1,V), cache)."""
+    model's shared attention block reads it; an audio decoder adds the
+    sinusoid at each row's pos). The cache is updated in place. Returns
+    (logits (B,1,V), cache)."""
     check_family(cfg)
     dev, tokens = _device_inputs(params, tokens, device)
     x = embed_tokens(cfg, params["embed"], tokens)
     pos = torch.as_tensor(pos, device=dev).to(torch.int32)  # not per layer
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "audio":
+        b = x.shape[0]
+        x = x + sinusoid_at(pos.expand(b), cfg.d_model)[:, None].to(x.dtype)
+        # every cross slot is read: pos T - 1 on each row, one fill a step
+        cross_pos = torch.full((b,), cache["cross"]["k"].shape[2] - 1,
+                               dtype=torch.int32, device=dev)
+        for i, p_l in enumerate(params["layers"]):
+            x, _ = blocks.apply_decoder_block_decode(
+                cfg, p_l, x, _layer_view(cache["self"], i),
+                _layer_view(cache["cross"], i), pos, cross_pos)
+    elif cfg.family in ("ssm", "hybrid"):
         conv, state = cache["ssm"]["conv"], cache["ssm"]["state"]
         period = _shared_period(cfg)
         for i, p_l in enumerate(params["layers"]):
@@ -286,8 +470,7 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, pos, *,
     else:
         block = (blocks.apply_moe_block_decode if cfg.family == "moe" else
                  blocks.apply_dense_block_decode)
-        ck, cv = cache["attn"]["k"], cache["attn"]["v"]
         for i, p_l in enumerate(params["layers"]):
-            x, _ = block(cfg, p_l, x, {"k": ck[i], "v": cv[i]}, pos)
+            x, _ = block(cfg, p_l, x, _layer_view(cache["attn"], i), pos)
     x = apply_norm(cfg, params["lnf"], x)
     return unembed(cfg, params["embed"], x), cache

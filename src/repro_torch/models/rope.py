@@ -1,8 +1,11 @@
-"""Rotary position embeddings (port of `repro/models/rope.py`).
+"""Rotary position embeddings (port of `repro/models/rope.py`): standard
+RoPE and the sectioned M-RoPE of the VLM family (Qwen2-VL).
 
-Standard RoPE only; the sectioned M-RoPE of the VLM family waits for its
-slice. Frequencies are computed in numpy float32 exactly as the JAX
-package computes them, angles in float32, and cos/sin cast to x's dtype.
+M-RoPE splits the rotary half-dim into 3 sections driven by (temporal,
+height, width) position ids; for a text-only stream all three ids coincide
+and it gives RoPE's values. Frequencies are computed in numpy float32
+exactly as the JAX package computes them, angles in float32, and cos/sin
+cast to x's dtype.
 """
 from __future__ import annotations
 
@@ -30,13 +33,35 @@ def rope_angles(positions, head_dim: int, theta: float):
     return positions[..., None].float() * inv
 
 
-def apply_rope(x, positions, theta: float = 10_000.0):
-    """x (B,S,H,Dh); positions (B,S)."""
-    ang = rope_angles(positions, x.shape[-1], theta)          # (B,S,half)
+def _rotate(x, ang):
+    """x (B,S,H,Dh) rotated by angles (B,S,Dh//2) in fp32."""
     cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
     sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
     x1, x2 = torch.chunk(x, 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def apply_rope(x, positions, theta: float = 10_000.0):
+    """x (B,S,H,Dh); positions (B,S)."""
+    return _rotate(x, rope_angles(positions, x.shape[-1], theta))
+
+
+def mrope_sections(head_dim: int):
+    """3 sections over the half rotary dim (t/h/w), Qwen2-VL style."""
+    half = head_dim // 2
+    a = half // 4
+    return (half - 2 * a, a, a)  # temporal gets the largest share
+
+
+def apply_mrope(x, positions3, theta: float = 10_000.0):
+    """x (B,S,H,Dh); positions3 (3,B,S) = (temporal, height, width) ids."""
+    head_dim = x.shape[-1]
+    inv = _freqs_on(head_dim, float(theta), positions3.device)
+    angs, off = [], 0
+    for i, sec in enumerate(mrope_sections(head_dim)):
+        angs.append(positions3[i][..., None].float() * inv[off:off + sec])
+        off += sec
+    return _rotate(x, torch.cat(angs, dim=-1))               # (B,S,half)
 
 
 def positional(cfg, positions):
@@ -44,6 +69,7 @@ def positional(cfg, positions):
     if cfg.rope == "none":
         return lambda x: x
     if cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE waits for the VLM family "
-                                  "(ROADMAP.md, A24)")
+        if positions.dim() == 2:  # text-only stream: t=h=w
+            positions = positions[None].expand((3,) + tuple(positions.shape))
+        return lambda x: apply_mrope(x, positions, cfg.rope_theta)
     return lambda x: apply_rope(x, positions, cfg.rope_theta)

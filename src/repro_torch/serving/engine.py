@@ -4,10 +4,13 @@ per-request `generate`.
 
   prefill(prompts) -> (next-token logits, cache_slice)
       One full-sequence forward (`models.model.prefill`) whose per-layer
-      cache (K/V, an SSM layer's conv window and state, or a hybrid
-      model's both) comes back as a batch-shaped slice, ready to be written
-      into free slots; on the card its attention runs the
-      `flash_attention` kernel and its SSD core the `ssd_chunk` kernel.
+      cache (K/V, an SSM layer's conv window and state, a hybrid model's
+      both, or an audio model's self and cross K/V) comes back as a
+      batch-shaped slice, ready to be written into free slots; on the card
+      its attention runs the `flash_attention` kernel and its SSD core the
+      `ssd_chunk` kernel. A VLM's prompt carries zero patch embeddings
+      (1/8 of its length) and an audio model's ``enc_frames`` zero frames,
+      the stubs' inputs, as JAX's engine gives them.
 
   decode_chunk(state, steps) -> state
       Advances ALL slots of the replica together, whichever request owns
@@ -28,9 +31,10 @@ share the batch — what makes the slot path equal `generate` per request.
 
 JAX jits these phases and donates the slot state; the port runs them
 eagerly and updates the state's tensors in place, returning the same
-object. The engine runs the dense, MoE, SSM and hybrid families
-(`models.model.check_family`); an MoE model uses the attention cache, a
-hybrid one the SSM cache and its shared block's attention cache.
+object. The engine runs all six families (`models.model.check_family`);
+an MoE or VLM model uses the attention cache, a hybrid one the SSM cache
+and its shared block's attention cache, an audio one its self and cross
+caches (the cross cache at ``enc_frames`` slots, as `prefill` gives it).
 """
 from __future__ import annotations
 
@@ -60,9 +64,9 @@ class SlotState:
     bookkeeping. Cache leaves are (layers, slots, ...); the slot axis is the
     model batch axis, so `decode_step` advances every slot in one call."""
     cache: Any                 # {"attn": {"k", "v"}}, {"ssm": {"conv",
-    #                            "state"}} or a hybrid's {"ssm",
-    #                            "shared_attn"}, leaves (layers or groups,
-    #                            S, ...)
+    #                            "state"}}, a hybrid's {"ssm",
+    #                            "shared_attn"} or an audio model's {"self",
+    #                            "cross"}, leaves (layers or groups, S, ...)
     last: torch.Tensor         # (S, V) f32 next-token logits
     out: torch.Tensor          # (S, max_out) i32 generated tokens (eos-filled)
     pos: torch.Tensor          # (S,) i32 next decode position
@@ -105,12 +109,13 @@ def _scatter_rows(big, sl, slot_ix) -> None:
 
 
 class Engine:
-    """One replica's generation engine over a dense, MoE, SSM or hybrid
-    ArchConfig model whose parameters lie on ``device``."""
+    """One replica's generation engine over any ArchConfig model whose
+    parameters lie on ``device``."""
 
     def __init__(self, cfg: ArchConfig, params, *, max_len: int = 512,
                  eos_id: int = 1, temperature: float = 1.0,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, enc_frames: Optional[int] = None,
+                 device="cuda"):
         M.check_family(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -119,6 +124,9 @@ class Engine:
         self.eos_id = eos_id
         self.temperature = temperature
         self.dtype = torch_dtype(dtype)      # the cache's dtype
+        # audio: the encoder's length is an engine property (tests use
+        # short stubs)
+        self.enc_frames = enc_frames or M.WHISPER_ENC_FRAMES
 
     # ------------------------------------------------------------- internals
     def _tokens(self, prompts) -> torch.Tensor:
@@ -126,6 +134,23 @@ class Engine:
             return prompts.to(self.device, torch.int64)
         return torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
                                device=self.device)
+
+    def _inputs(self, prompts):
+        """The model's inputs for ``prompts`` (B, S): the tokens, and a
+        VLM's zero patch embeddings or an audio model's zero frames."""
+        cfg = self.cfg
+        tokens = self._tokens(prompts)
+        b, s = tokens.shape
+        inputs = {"tokens": tokens}
+        if cfg.family == "vlm":
+            inputs["vision_embeds"] = torch.zeros(
+                (b, max(s // M.VLM_VISION_FRACTION, 1), cfg.d_model),
+                dtype=self.dtype, device=self.device)
+        if cfg.family == "audio":
+            inputs["frames"] = torch.zeros((b, self.enc_frames, cfg.d_model),
+                                           dtype=self.dtype,
+                                           device=self.device)
+        return inputs
 
     def _decode(self, tok, cache, pos):
         lg, cache = M.decode_step(self.cfg, self.params, tok[:, None], cache,
@@ -136,7 +161,8 @@ class Engine:
     def init_slots(self, n_slots: int,
                    max_out: Optional[int] = None) -> SlotState:
         """Allocate the persistent slot cache (the structure `prefill`
-        returns, with ``n_slots`` rows)."""
+        returns, with ``n_slots`` rows: an audio model's cross cache at
+        this engine's ``enc_frames``)."""
         max_out = max_out or self.max_len
         dev = self.device
 
@@ -145,7 +171,8 @@ class Engine:
 
         return SlotState(
             cache=M.init_decode_caches(self.cfg, n_slots, self.max_len,
-                                       self.dtype, device=dev),
+                                       self.dtype, device=dev,
+                                       enc_frames=self.enc_frames),
             last=torch.zeros((n_slots, self.cfg.vocab), dtype=torch.float32,
                              device=dev),
             out=torch.full((n_slots, max_out), self.eos_id,
@@ -160,9 +187,9 @@ class Engine:
     def prefill(self, prompts) -> Tuple[torch.Tensor, Any]:
         """Prompt phase: (next-token logits (B, V), cache_slice) — the slice
         `admit` writes into free slots."""
-        return M.prefill(self.cfg, self.params,
-                         {"tokens": self._tokens(prompts)}, self.max_len,
-                         cache_dtype=self.dtype, device=self.device)
+        return M.prefill(self.cfg, self.params, self._inputs(prompts),
+                         self.max_len, cache_dtype=self.dtype,
+                         device=self.device)
 
     def admit(self, state: SlotState, slot_ix, lg, cache_slice, *,
               prompt_len: int, max_new, seed: Optional[int] = None,

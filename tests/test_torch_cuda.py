@@ -602,3 +602,121 @@ def test_windowed_serving_path_runs_decode_attention(dev, arch):
                               device=dev)
     step, _ = M.decode_step(cfg, params, nxt, cache, pos, device="cpu")
     assert (step_c.cpu() - step).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,kv,hd", [
+    # ragged S != T on the bf16 kernel's 128-row and 128-key tile edges
+    (2, 7, 300, 8, 2, 64), (1, 129, 77, 9, 1, 128), (1, 300, 129, 8, 2, 128),
+    # Whisper's cross-attention in prefill: a 64-token prompt against
+    # 1,500 encoder frames (20 / 20 heads of 64), and its encoder's
+    # self-attention (11 tiles of 128 rows and 92)
+    (4, 64, 1500, 20, 20, 64), (1, 1500, 1500, 20, 20, 64)])
+def test_flash_attention_non_causal_s_not_t_matches_plain(dev, dtype, b, s, t,
+                                                          h, kv, hd):
+    """Non-causal attention of S queries over T keys, keys past T masked by
+    the kernel (no padding of T outside it)."""
+    q, k, v = _attn_inputs([(b, s, h, hd), (b, t, kv, hd), (b, t, kv, hd)],
+                           dtype, s + t, dev)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=False)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert (out.float() - want.float()).abs().max().item() <= \
+        ATTN_ATOL[dtype]
+    assert fa.row_error_ratio(out, want, ROW_RTOL, ROW_ATOL) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 63, 65, 1499, 1500])
+def test_decode_attention_whole_cache_at_ragged_t(dev, dtype, t):
+    """Cross-attention decode: every row at pos T - 1 reads all T slots,
+    T ragged against the 64-slot tile (Whisper's 1,500 frames among
+    them), against the plain version's unmasked softmax."""
+    b, h, kv, hd = 8, 20, 20, 64
+    q, k, v = _attn_inputs([(b, 1, h, hd), (b, t, kv, hd), (b, t, kv, hd)],
+                           dtype, t, dev)
+    pos = torch.full((b,), t - 1, dtype=torch.int32, device=dev)
+    out = ops.decode_attention(q, k, v, pos)
+    want = dec.decode_attention_plain(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert (out.float() - want.float()).abs().max().item() <= \
+        ATTN_ATOL[dtype]
+    assert fa.row_error_ratio(out, want, ROW_RTOL, ROW_ATOL) <= 1
+
+
+def _reduced_on_card(arch, dev):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    return cfg, params, convert.params_to(params, dev)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "whisper-large-v3"])
+def test_vlm_and_audio_serving_paths_run_the_attention_kernels(dev, arch):
+    """The reduced Qwen2-VL and Whisper in float32: `generate`'s prefill
+    launches one flash kernel per attention (Whisper: encoder, self and
+    cross), each decode step one decode kernel per attention (Whisper: self
+    and cross); the prefill's logits match the CPU's."""
+    cfg, params, card = _reduced_on_card(arch, dev)
+    prompts = np.random.default_rng(0).integers(2, cfg.vocab, (3, 40))
+    audio = cfg.family == "audio"
+    ops.reset_launches()
+    Engine(cfg, card, max_len=64, enc_frames=64, device=dev).generate(
+        prompts, 6)
+    per_prefill = cfg.n_enc_layers + 2 * cfg.n_layers if audio else \
+        cfg.n_layers
+    assert ops.LAUNCHES["flash_attention"] == per_prefill
+    assert ops.LAUNCHES["decode_attention"] == \
+        (2 if audio else 1) * cfg.n_layers * 5
+    gen = np.random.default_rng(1)
+    extra = ({"frames": gen.standard_normal((3, 64, cfg.d_model),
+                                            dtype=np.float32)} if audio else
+             {"vision_embeds": gen.standard_normal((3, 5, cfg.d_model),
+                                                   dtype=np.float32)})
+    inputs = {"tokens": prompts, **extra}
+    last_c, _ = M.prefill(cfg, card, inputs, 64, device=dev)
+    last, _ = M.prefill(cfg, params, inputs, 64, device="cpu")
+    assert (last_c.cpu() - last).abs().max().item() <= 1e-4
+
+
+def test_whisper_decode_step_replays_from_a_cuda_graph(dev):
+    """One decode step of the reduced Whisper (self and cross attention
+    through `decode_attention`) captured in a CUDA graph replays to the
+    eager step's logits and self cache, bit for bit."""
+    cfg, _, card = _reduced_on_card("whisper-large-v3", dev)
+    prompts = np.random.default_rng(2).integers(2, cfg.vocab, (4, 12))
+    frames = np.random.default_rng(3).standard_normal((4, 64, cfg.d_model),
+                                                      dtype=np.float32)
+    _, cache = M.prefill(cfg, card, {"tokens": prompts, "frames": frames},
+                         32, device=dev)
+    tok = torch.full((4, 1), 5, dtype=torch.int64, device=dev)
+    pos = torch.tensor([12, 12, 20, 7], dtype=torch.int32, device=dev)
+
+    def clone(c):
+        return {n: {k: v.clone() for k, v in part.items()}
+                for n, part in c.items()}
+
+    eager_cache = clone(cache)
+    eager, _ = M.decode_step(cfg, card, tok, eager_cache, pos, device=dev)
+    graph_cache = clone(cache)
+    M.decode_step(cfg, card, tok, clone(cache), pos, device=dev)   # warm-up
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    ops.reset_launches()
+    with torch.cuda.graph(graph, stream=side):
+        captured, _ = M.decode_step(cfg, card, tok, graph_cache, pos,
+                                    device=dev)
+    assert ops.LAUNCHES["decode_attention"] == 2 * cfg.n_layers
+    for k in ("k", "v"):
+        graph_cache["self"][k].copy_(cache["self"][k])
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    for k in ("k", "v"):
+        assert torch.equal(graph_cache["self"][k], eager_cache["self"][k])

@@ -22,6 +22,11 @@ CPU.
   groups each with its own shared-attention ring cache of 64 slots;
   `generate` from prompts of 64 tokens (two SSD chunks), so every decode
   step's attention wraps the ring.
+* Both again for the reduced Qwen2-VL (the VLM family: zero patch
+  embeddings, 1/8 of the prompt, ahead of the text, so decoding starts at
+  `prefill_len`) and the reduced Whisper (the audio family) with engines of
+  `enc_frames` 64, as JAX's tests size the stub frames: the slot cache's
+  cross K/V have 64 slots, and `admit` writes a prefill's into them.
 """
 import dataclasses
 
@@ -42,6 +47,7 @@ from repro_torch.serving import engine
 torch.set_num_threads(1)
 LOGIT_TOL = 2e-5
 MAX_LEN = 64
+ENC_FRAMES = 64          # the audio engines' stub frames
 
 
 def row_keys(seed, n):
@@ -122,6 +128,18 @@ def hybrid_engines():
     return reduced_pair("zamba2-2.7b", n_layers=4)
 
 
+@pytest.fixture(scope="module")
+def vlm_engines():
+    """The reduced Qwen2-VL."""
+    return reduced_pair("qwen2-vl-72b")
+
+
+@pytest.fixture(scope="module")
+def audio_engines():
+    """The reduced Whisper (engines at `ENC_FRAMES` frames)."""
+    return reduced_pair("whisper-large-v3")
+
+
 def first_difference(a, b):
     """(row, step) of the first differing token, or None."""
     diff = np.argwhere(a != b)
@@ -131,11 +149,24 @@ def first_difference(a, b):
     return int(diff[diff[:, 1] == step][0, 0]), int(step)
 
 
+def stub_inputs(cfg, prompts):
+    """The zero patch embeddings or frames an engine gives ``prompts``."""
+    b, s = prompts.shape
+    if cfg.family == "vlm":
+        return {"vision_embeds": np.zeros(
+            (b, max(s // M.VLM_VISION_FRACTION, 1), cfg.d_model), np.float32)}
+    if cfg.family == "audio":
+        return {"frames": np.zeros((b, ENC_FRAMES, cfg.d_model), np.float32)}
+    return {}
+
+
 def port_scores(cfg, params, prompts, tokens, row, step, seed, temperature):
     """The port's sampling scores (logits / T + Gumbel noise) for ``row``
     at ``step``, on the shared prefix ``tokens[:, :step]``."""
     ext = np.concatenate([prompts, tokens[:, :step]], axis=1)
-    logits, _ = M.forward(cfg, params, {"tokens": ext}, device="cpu")
+    logits, _ = M.forward(cfg, params, {"tokens": ext,
+                                        **stub_inputs(cfg, prompts)},
+                          device="cpu")
     base = prng.PRNGKey(seed, device="cpu")
     key = prng.fold_in(prng.fold_in(base, row), step)
     lg = logits[row, -1].float() / max(temperature, 1e-4)
@@ -149,11 +180,12 @@ def check_generate(engines, temperature, prompt_len=10):
                                                 ).astype(np.int32)
     max_new, seed = 12, 5
     want = jengine.Engine(jcfg, jparams, max_len=MAX_LEN,
-                          temperature=temperature).generate(prompts, max_new,
-                                                            seed=seed)
+                          temperature=temperature,
+                          enc_frames=ENC_FRAMES).generate(prompts, max_new,
+                                                          seed=seed)
     got = engine.Engine(cfg, params, max_len=MAX_LEN,
-                        temperature=temperature, device="cpu").generate(
-        prompts, max_new, seed=seed)
+                        temperature=temperature, enc_frames=ENC_FRAMES,
+                        device="cpu").generate(prompts, max_new, seed=seed)
     at = first_difference(got.tokens, want.tokens)
     if at is None:
         np.testing.assert_array_equal(got.out_lens, want.out_lens)
@@ -184,6 +216,16 @@ def test_hybrid_generate_matches_reference(hybrid_engines, temperature):
     check_generate(hybrid_engines, temperature, prompt_len=64)
 
 
+@pytest.mark.parametrize("temperature", [0.7, 1e-4])
+def test_vlm_generate_matches_reference(vlm_engines, temperature):
+    check_generate(vlm_engines, temperature)
+
+
+@pytest.mark.parametrize("temperature", [0.7, 1e-4])
+def test_audio_generate_matches_reference(audio_engines, temperature):
+    check_generate(audio_engines, temperature)
+
+
 def harvest(state, slots, max_new):
     slots = torch.tensor(slots)
     n_out = state.n_out[slots]
@@ -195,7 +237,7 @@ def harvest(state, slots, max_new):
 def check_slots(engines):
     _, _, cfg, params = engines
     eng = engine.Engine(cfg, params, max_len=MAX_LEN, temperature=0.7,
-                        device="cpu")
+                        enc_frames=ENC_FRAMES, device="cpu")
     rng = np.random.default_rng(8)
     req_a = dict(prompts=rng.integers(2, cfg.vocab, (2, 6)).astype(np.int32),
                  max_new=10, seed=11, slots=[0, 1])
@@ -228,6 +270,20 @@ def test_moe_slot_api_matches_generate_per_request(moe_engines):
 
 def test_hybrid_slot_api_matches_generate_per_request(hybrid_engines):
     check_slots(hybrid_engines)
+
+
+def test_vlm_slot_api_matches_generate_per_request(vlm_engines):
+    check_slots(vlm_engines)
+
+
+def test_audio_slot_api_matches_generate_per_request(audio_engines):
+    """The slot cache's cross K/V at the engine's 64 frames."""
+    _, _, cfg, params = audio_engines
+    state = engine.Engine(cfg, params, enc_frames=ENC_FRAMES,
+                          device="cpu").init_slots(3)
+    assert tuple(state.cache["cross"]["k"].shape) == (
+        cfg.n_layers, 3, ENC_FRAMES, cfg.n_kv_heads, cfg.head_dim)
+    check_slots(audio_engines)
 
 
 def test_admit_checks_are_real_exceptions(engines):

@@ -9,7 +9,8 @@ capacity factor, so their prefills may drop entries as JAX's do, and with
 `forward`'s load-balance loss held at 1e-6; and H2O-Danube's sliding window
 with a ring cache shorter than the prompt, whose decode runs through
 `ops.decode_attention` (its plain version here) with the raw pos.
-The hybrid family (Zamba2) has its own file, `tests/test_torch_hybrid.py`.
+The hybrid, VLM and audio families have their own files,
+`tests/test_torch_{hybrid,vlm,audio}.py`.
 In float32 the two frameworks differ only in the order of
 their sums (matmuls, softmax, norms), so logits and caches are held at
 atol = rtol = 2e-5, the tolerance `tests/test_engine.py` holds prefill to;
@@ -180,16 +181,6 @@ def test_prefill_then_decode_matches_forward(pair):
     ext = np.concatenate([toks, nxt.numpy().astype(np.int32)], axis=1)
     full2, _ = M.forward(cfg, params, {"tokens": ext}, device="cpu")
     close(lg2[:, 0], full2[:, -1], dict(atol=2e-3, rtol=2e-3))
-
-
-@pytest.mark.parametrize("arch,item", [
-    ("qwen2-vl-72b", "A24"), ("whisper-large-v3", "A25")])
-def test_other_families_raise_naming_their_item(arch, item):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=item):
-        M.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        M.param_count(cfg)
 
 
 def test_apply_moe_ep_raises_naming_a18():

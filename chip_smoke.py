@@ -49,8 +49,30 @@ Phases, each of which fails the run on any mismatch:
                 host-clock times of its parts, and a `torch.profiler` trace
                 of a few rounds for the device's busy share and the kernels
                 launched per round
-  7. quickstart `bandit.simulate("c2mabv")` with examples/quickstart.py's
-                settings must reach its verdict, violation ≈ 0
+  7. quickstart examples/quickstart.py whole: `bandit.simulate` of
+                "c2mabv" (the fleet path) and then "cucb" (the per-seed
+                loop), AWC, T 2,000, 5 seeds; c2mabv's violation must stay
+                within 1e-3 and its reward/violation ratio above twice
+                cucb's
+  7b. baselines every other policy of `make_policy` on the card, on the
+                quickstart's configuration at T 256, 5 seeds: per-seed
+                c2mabv (`use_fleet=False`), c2mabv_direct, thompson,
+                egreedy, fixed (arm 0), offline_fixed (S* from
+                `solve_direct`); set sizes gated against each matroid,
+                direct's violation at most per-seed c2mabv's
+  7c. per-seed  `simulate("c2mabv", use_fleet=False)` over 4,096 seeds for
+                32 rounds, AWC and SUC: `topn_lp` / `awc_fw` launches a
+                round gated exactly (24 / 8 for AWC, 4 / 0 for SUC), the
+                first round's masks bit-equal to the CPU's on the same keys;
+                rounds/s and a traced round's device share printed
+  7d. protocol  the paper's split: one `LocalServer` and a
+                `SchedulingCloud` over the paper pool (SUC, n 4) for 32
+                rounds of relaxed_selection -> select -> record; its 9
+                replicas share one engine of StarCoder2-7B at full width cut
+                to 2 layers, and on 4 rounds every selected arm generates
+                16 tokens for 2 prompts of 128 (`dispatch`); every kernel
+                launch gated (4 `topn_lp` a round, 2 `flash_attention` a
+                dispatch, 2 `decode_attention` a decode step)
   8. serve      the serving path: StarCoder2-7B at full width (bf16 weights
                 from `init_params`, seed 0) behind `Engine`: `generate` on 4
                 prompts of 2,048 tokens, then the slot API (8 slots, two
@@ -157,6 +179,19 @@ ROUNDS = 128                     # fleet rounds (phase 5)
 DECISION_ROUNDS = 16             # rounds before the decision check (phase 4)
 PROFILE_ROUNDS = 4               # rounds traced by the profiler (phase 6)
 QUICKSTART_ROUNDS = 2000         # examples/quickstart.py's T (phase 7)
+BASELINE_ROUNDS = 256            # the §6 baselines' T (phase 7b)
+PER_SEED = 4096                  # per-seed C2MAB-V's seeds (phase 7c)
+PER_SEED_ROUNDS = 32
+# kernels a round of the per-seed path: the relaxed solve's octave round and
+# 3 mantissa rounds (SUC), or 8 Frank-Wolfe steps of one awc_fw and 3
+# mantissa rounds each (AWC), as in a fleet round
+PER_SEED_LAUNCHES = {"suc": {"topn_lp": 4},
+                     "awc": {"topn_lp": 24, "awc_fw": 8}}
+PROTOCOL_ROUNDS = 32             # local server + scheduling cloud (phase 7d)
+PROTOCOL_DISPATCH = (1, 9, 17, 25)   # rounds whose arms generate
+PROTOCOL_LAYERS = 2              # StarCoder2-7B's 32 layers cut to 2
+PROTOCOL_PROMPTS = (2, 128)      # prompts per dispatched arm, tokens
+PROTOCOL_NEW = 16                # tokens generated per prompt
 SERVE_ARCH = "starcoder2-7b"     # the serving path's model (phase 8)
 WINDOW_ARCH = "h2o-danube-3-4b"  # head_dim 120, sliding window (phase 10b)
 SSM_ARCH = "mamba2-780m"         # the SSM serving path's model (phase 11)
@@ -761,31 +796,187 @@ def device_trace(tag: str, unit: str, n: int, fn, top: int = 8) -> None:
               f"{e.key[:90]}", flush=True)
 
 
-def phase_quickstart(pool, ops, dev, T: int) -> None:
-    from repro_torch.core import bandit, metrics, rewards
+def quickstart_config(pool, T: int):
+    """examples/quickstart.py's AWC configuration."""
     from repro_torch.core.policies import PolicyConfig
     from repro_torch.env.llm_profiles import default_rho
-    kind = "awc"
-    rho = default_rho(pool, kind, n=4)
-    pcfg = PolicyConfig(kind=kind, k=pool.k, n=4, rho=rho, delta=1 / T,
+    rho = default_rho(pool, "awc", n=4)
+    return PolicyConfig(kind="awc", k=pool.k, n=4, rho=rho, delta=1 / T,
                         alpha_mu=0.3, alpha_c=0.01)
+
+
+def run_policy(tag: str, name: str, pool, pcfg, ops, dev, T: int,
+               seeds: int = 5, **kw):
+    """`bandit.simulate(name)` on the card; prints reward per round,
+    violation and ratio; returns (result, summary, launches)."""
+    from repro_torch.core import bandit, metrics, rewards
     ops.reset_launches()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = bandit.simulate("c2mabv", pool, pcfg, T=T, seeds=5, device=dev)
+    res = bandit.simulate(name, pool, pcfg, T=T, seeds=seeds, device=dev,
+                          **kw)
     secs = time.perf_counter() - t0
-    s = metrics.summarize(res.reward, res.cost, rho,
+    s = metrics.summarize(res.reward, res.cost, pcfg.rho,
                           bandit.optimal_value(pool, pcfg),
-                          float(rewards.ALPHA[kind]))
-    print(f"quickstart: T={T} seeds=5 in {secs:.1f} s: reward/round "
-          f"{s['reward_mean']:.4f} violation {s['violation_final']:.5f} "
-          f"ratio {s['ratio_final']:.1f} launches "
-          f"{ {k: ops.LAUNCHES[k] for k in FLEET_KERNELS} }",
-          flush=True)
-    if min(ops.LAUNCHES[k] for k in FLEET_KERNELS) == 0:
+                          float(rewards.ALPHA[pcfg.kind]))
+    launches = {k: ops.LAUNCHES[k] for k in FLEET_KERNELS}
+    label = name + ("" if kw.get("use_fleet", True) else " (per seed)")
+    print(f"{tag}: [{label}] T={T} seeds={seeds} in {secs:.1f} s "
+          f"({T / secs:.2f} rounds/s): reward/round {s['reward_mean']:.4f} "
+          f"violation "
+          f"{s['violation_final']:.5f} ratio {s['ratio_final']:.1f} "
+          f"launches {launches}", flush=True)
+    if not np.isfinite(res.reward).all() or (res.cost < 0).any():
+        fail(f"{tag}: {label} produced non-finite rewards or negative costs")
+    if (res.observed > res.action).any():
+        fail(f"{tag}: {label} observed outside the selected set")
+    return res, s, launches
+
+
+def phase_quickstart(pool, ops, dev, T: int) -> None:
+    """examples/quickstart.py: C2MAB-V (the fleet path), then CUCB."""
+    pcfg = quickstart_config(pool, T)
+    _, ours, launches = run_policy("quickstart", "c2mabv", pool, pcfg, ops,
+                                   dev, T)
+    if min(launches.values()) == 0:
         fail("the quickstart ran without a kernel launch")
-    if s["violation_final"] > 1e-3:
+    if ours["violation_final"] > 1e-3:
         fail(f"quickstart verdict not reached: violation "
-             f"{s['violation_final']}")
+             f"{ours['violation_final']}")
+    _, blind, _ = run_policy("quickstart", "cucb", pool, pcfg, ops, dev, T)
+    if not ours["ratio_final"] > 2 * blind["ratio_final"]:
+        fail(f"c2mabv's ratio {ours['ratio_final']} is not above twice "
+             f"cucb's {blind['ratio_final']}")
+
+
+def phase_baselines(pool, ops, dev, T: int) -> None:
+    """Every other policy of `make_policy` on the card, on the quickstart's
+    AWC configuration: per-seed C2MAB-V, C2MAB-V-Direct, Thompson
+    sampling, ε-greedy, a fixed arm (0) and the offline-best set S*."""
+    from repro_torch.core import metrics
+    from repro_torch.core.relax import solve_direct
+    pcfg = quickstart_config(pool, T)
+    s_star, _ = solve_direct("awc", pool.mu, pool.mean_cost, pcfg.n,
+                             pcfg.rho)
+    runs = (("c2mabv", {"use_fleet": False}), ("c2mabv_direct", {}),
+            ("thompson", {}), ("egreedy", {}), ("fixed", {"arm": 0}),
+            ("offline_fixed", {"mask": s_star}))
+    vio = {}
+    for name, kw in runs:
+        res, s, launches = run_policy("baselines", name, pool, pcfg, ops,
+                                      dev, T, **kw)
+        sizes = res.action.sum(-1)
+        want = {"fixed": 1, "offline_fixed": int(s_star.sum()),
+                "thompson": pcfg.n, "egreedy": pcfg.n}.get(name)
+        if want is not None and (sizes != want).any():
+            fail(f"baselines: {name} chose sets of {np.unique(sizes)}, "
+                 f"not {want}")
+        if (sizes > pcfg.n).any() or (sizes < 0).any():
+            fail(f"baselines: {name} broke the matroid (|S| <= {pcfg.n})")
+        if name == "c2mabv" and min(launches.values()) == 0:
+            fail("baselines: per-seed c2mabv ran without a kernel launch")
+        vio[name] = metrics.violation_curve(res.cost, pcfg.rho)[:, -1].mean()
+    if vio["c2mabv_direct"] > vio["c2mabv"] + 1e-6:
+        fail(f"baselines: direct's violation {vio['c2mabv_direct']} above "
+             f"the relaxed policy's {vio['c2mabv']}")
+
+
+def phase_per_seed(pool, ops, dev, seeds: int, T: int) -> None:
+    """`simulate("c2mabv", use_fleet=False)` at the fleet's scale, AWC and
+    SUC: exact kernel launches a round, the first round's masks bit-equal
+    to the CPU's (plain kernels) on the same keys, and a traced round's
+    device share."""
+    from repro_torch import prng
+    from repro_torch.core import bandit
+    from repro_torch.core import confidence as cb
+    from repro_torch.core.policies import PolicyConfig, make_policy
+    from repro_torch.env.llm_profiles import default_rho
+    for kind in ("awc", "suc"):
+        pcfg = PolicyConfig(kind=kind, k=pool.k, n=4,
+                            rho=default_rho(pool, kind, 4), delta=1 / T)
+        res, _, launches = run_policy("per-seed", "c2mabv", pool, pcfg, ops,
+                                      dev, T, seeds=seeds, use_fleet=False)
+        want = {k: v * T for k, v in PER_SEED_LAUNCHES[kind].items()}
+        expect_launches(ops, want, f"per-seed {kind}")
+        keys = prng.split(prng.PRNGKey(0, device=dev), seeds)
+        ka = prng.split(keys, 4)[:, 1].cpu()
+        cpu_mask = make_policy("c2mabv", pcfg, device="cpu")(
+            cb.init_stats_batch(seeds, pool.k, "cpu"), ka, 1).numpy()
+        bad = np.nonzero((res.action[:, 0] != cpu_mask).any(-1))[0]
+        print(f"per-seed: {kind} round-1 masks, card against CPU: "
+              f"{len(bad)} of {seeds} rows differ", flush=True)
+        if len(bad):
+            fail(f"per-seed {kind}: round-1 masks differ on rows "
+                 f"{bad[:20].tolist()}")
+        device_trace(f"per-seed {kind}", "round", 4, lambda: bandit.simulate(
+            "c2mabv", pool, pcfg, T=4, seeds=seeds, use_fleet=False,
+            device=dev))
+
+
+def phase_protocol(pool, ops, dev) -> None:
+    """The paper's split (§4, Fig. 3): one `LocalServer` solves the
+    relaxation, one `SchedulingCloud` over the paper pool rounds it and
+    dispatches generation; the K replicas share one engine of StarCoder2-7B
+    at full width over `PROTOCOL_LAYERS` layers (bf16)."""
+    from repro_torch.core.policies import PolicyConfig
+    from repro_torch.env.llm_profiles import TABLE3, default_rho
+    from repro_torch.router.cloud import Replica, SchedulingCloud
+    from repro_torch.router.local_server import LocalServer
+    from repro_torch.serving.engine import Engine
+    cfg, params = full_width(SERVE_ARCH, dev, "protocol", PROTOCOL_LAYERS)
+    eng = Engine(cfg, params, max_len=256, temperature=0.7,
+                 dtype=torch.bfloat16, device=dev)
+    pcfg = PolicyConfig(kind="suc", k=pool.k, n=4,
+                        rho=default_rho(pool, "suc", 4),
+                        delta=1 / PROTOCOL_ROUNDS)
+    # Table 3's $ per 1k tokens, per token in the pool's normalized units
+    price = np.asarray([p for _, p in TABLE3]) / 1000.0 / pool.cost_scale
+    local = LocalServer(pcfg, device=dev)
+    cloud = SchedulingCloud(pcfg, [Replica(name, eng, float(p)) for name, p
+                                   in zip(pool.names, price)], device=dev)
+    rng = np.random.default_rng(0)
+    b, plen = PROTOCOL_PROMPTS
+    eng.generate(rng.integers(0, cfg.vocab, (1, 16)), 2)      # warm-up
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dispatched, spent = 0, 0.0
+    for r in range(1, PROTOCOL_ROUNDS + 1):
+        z = local.relaxed_selection()
+        mask = cloud.select(z, rng)
+        if not np.isfinite(z).all() or mask.sum() != pcfg.n:
+            fail(f"protocol: round {r} gave z̃ {z} and a set of "
+                 f"{int(mask.sum())}, not {pcfg.n}")
+        for arm in np.flatnonzero(mask):
+            cost = float(pool.mean_cost[arm] * rng.uniform(0.5, 1.5))
+            if r in PROTOCOL_DISPATCH:
+                prompts = rng.integers(0, cfg.vocab, (b, plen))
+                out, bill = cloud.dispatch(int(arm), prompts, PROTOCOL_NEW,
+                                           seed=r)
+                if out.tokens.shape != (b, PROTOCOL_NEW) or bill <= 0:
+                    fail(f"protocol: arm {arm} returned {out.tokens.shape} "
+                         f"tokens at a cost of {bill}")
+                dispatched += 1
+                spent += bill
+            reward = float(rng.uniform() < pool.mu[arm])
+            local.record(int(arm), reward, cost)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    steps = dispatched * (PROTOCOL_NEW - 1)
+    print(f"protocol: {PROTOCOL_ROUNDS} rounds in {secs:.2f} s, "
+          f"{dispatched} dispatches ({b} x {plen} tokens, {PROTOCOL_NEW} "
+          f"new) billed {spent:.4f}; t = {local.t}, mu_hat "
+          f"{np.round(local.mu_hat, 3).tolist()}; launches "
+          f"{dict(ops.LAUNCHES)}", flush=True)
+    expect_launches(ops, {"topn_lp": 4 * PROTOCOL_ROUNDS,
+                          "flash_attention": dispatched * PROTOCOL_LAYERS,
+                          "decode_attention": steps * PROTOCOL_LAYERS},
+                    "protocol")
+    if local.t != PROTOCOL_ROUNDS or len(local.log) != PROTOCOL_ROUNDS * 4:
+        fail(f"protocol: the local server is at t = {local.t} with "
+             f"{len(local.log)} records")
+    del eng, params
+    torch.cuda.empty_cache()
 
 
 def phase_attention_kernels(ops, dev):
@@ -1521,6 +1712,9 @@ def main() -> None:
         fail(f"a kernel of the main path never launched: {launches}")
     phase_profile(pool, dev, cfg, state, PROFILE_ROUNDS)
     phase_quickstart(pool, ops, dev, QUICKSTART_ROUNDS)
+    phase_baselines(pool, ops, dev, BASELINE_ROUNDS)
+    phase_per_seed(pool, ops, dev, PER_SEED, PER_SEED_ROUNDS)
+    phase_protocol(pool, ops, dev)
     serve_launches, params, cfg = phase_serve(ops, dev, SERVE_ARCH, "serve",
                                               SERVE_TRAFFIC)
     for name in ("flash_attention", "decode_attention"):

@@ -28,9 +28,17 @@ their plain PyTorch versions.
        extension with lp_topn as the linear-maximization oracle (Eq. 3).
 
 `solve_batch` solves the SUC and AIC rows of a mixed batch in one equality
-call and the AWC rows in one Frank-Wolfe loop. The reference's CPU lowering
-(`_grid_tail*`, warm FW, `_solve_ix_unified`) and its bisect engine are not
-ported yet. `enumerate_actions` and `solve_direct` are numpy.
+call and the AWC rows in one Frank-Wolfe loop.
+
+``engine="bisect"`` selects the reference's other engine, the sequential
+λ-doubling (DOUBLE_ITERS) then bisection (BISECT_ITERS) chain with a full
+vertex per probe (`_lp_topn_bisect`), in plain torch: it reaches no kernel
+in the reference either. ``fw_steps`` sets the AWC Frank-Wolfe step count
+(default FW_STEPS). Both are arguments of `lp_topn`, `solve_relaxed` and
+`solve_batch`; the port reads no environment variable for them (the
+reference's REPRO_LP_ENGINE and REPRO_FW_STEPS). The reference's CPU
+lowering (`_grid_tail*`, warm FW, `_solve_ix_unified`) is not ported yet.
+`enumerate_actions` and `solve_direct` are numpy.
 """
 from __future__ import annotations
 
@@ -41,18 +49,33 @@ import numpy as np
 import torch
 
 from repro_torch.core import rewards as R
-from repro_torch.core.ranks import lagrangian_topn_mask
+from repro_torch.core.ranks import lagrangian_topn_mask, topn_mask
 from repro_torch.core.rewards import sum_in_order
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 
-FW_STEPS = 8           # continuous-greedy steps (the reference's default;
-#                        its REPRO_FW_STEPS / fw_steps= knob is not ported)
+FW_STEPS = 8           # continuous-greedy steps (the reference's default)
+BISECT_ITERS = 48      # bisect engine: sequential bisection depth
+DOUBLE_ITERS = 24      # bisect engine: λ-doubling depth (cap λ at 2^24)
+ENGINES = ("grid", "bisect")
+DEFAULT_ENGINE = "grid"
 LAM_MAX_EXP = 24       # λ is capped at 2^LAM_MAX_EXP
 GRID_ROUNDS = 4        # mantissa rounds, including the final one
 GRID_POINTS = 64       # λ probes per mantissa round (a power of two)
 AWC_IX = R.KIND_INDEX["awc"]
 AIC_IX = R.KIND_INDEX["aic"]
+
+
+def _resolve_engine(engine: Optional[str]) -> str:
+    engine = DEFAULT_ENGINE if engine is None else engine
+    if engine not in ENGINES:
+        raise ValueError(f"unknown LP engine {engine!r}, want one of "
+                         f"{ENGINES}")
+    return engine
+
+
+def _resolve_fw(fw_steps: Optional[int]) -> int:
+    return FW_STEPS if fw_steps is None else int(fw_steps)
 
 
 def _mix_straddle(rho, z_lo, c_lo, z_hi, c_hi):
@@ -76,8 +99,9 @@ def _lagrangian_costs(w, c, n, lams, equality: bool):
     b, g = lams.shape
     k = w.shape[-1]
     scores = w[:, None, :] - lams[:, :, None] * c[:, None, :]
-    cost = c[:, None, :].expand(b, g, k).reshape(b * g, k)
-    nn = n[:, None].expand(b, g).reshape(b * g)
+    # contiguous: with one row, reshape keeps the expanded view's 0 stride
+    cost = c[:, None, :].expand(b, g, k).reshape(b * g, k).contiguous()
+    nn = n[:, None].expand(b, g).reshape(b * g).contiguous()
     out = kops.topn_lp(scores.reshape(b * g, k), cost, nn,
                        equality=equality)
     return out.reshape(b, g)
@@ -165,46 +189,111 @@ def _rows(w, c, n, rho):
             .expand(w.shape[0]).contiguous())
 
 
-def lp_topn(w, c, n, rho, equality: bool):
+# ============================================================ bisect engine
+def _topn_given_lambda(w, c, n, lam, equality: bool):
+    """Vertices z(λ) on rows: the top-n arms by w − λ·c (stable ranks: the
+    lower index wins a tie, as `lax.top_k` does); with ``equality`` False
+    the arms of score <= 0 drop. lam (B,). The score is one fused
+    multiply-add, rounded once, as XLA contracts it."""
+    score = (w.double() - lam.double()[:, None] * c.double()).to(
+        torch.float32)
+    return topn_mask(score, n, equality)
+
+
+def _lp_topn_bisect(w, c, n, rho, equality: bool):
+    """The reference engine on rows: λ doubled until feasible, then
+    bisected, carrying the vertices on each side of the breakpoint."""
+    zero = torch.zeros_like(rho)
+    z0 = _topn_given_lambda(w, c, n, zero, equality)
+    cost0 = sum_in_order(c * z0)
+
+    lam = torch.ones_like(rho)
+    for _ in range(DOUBLE_ITERS):
+        cost = sum_in_order(c * _topn_given_lambda(w, c, n, lam, equality))
+        lam = torch.where(cost > rho, lam * 2.0, lam)
+    lo, hi = zero, lam
+    z_l, z_h = z0, _topn_given_lambda(w, c, n, lam, equality)
+    for _ in range(BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        z_m = _topn_given_lambda(w, c, n, mid, equality)
+        feas = sum_in_order(c * z_m) <= rho
+        lo = torch.where(feas, lo, mid)
+        hi = torch.where(feas, mid, hi)
+        z_l = torch.where(feas[:, None], z_l, z_m)
+        z_h = torch.where(feas[:, None], z_m, z_h)
+    z_mix = _mix_straddle(rho, z_l, sum_in_order(c * z_l), z_h,
+                          sum_in_order(c * z_h))
+    return torch.where((cost0 <= rho)[:, None], z0, z_mix)
+
+
+# ============================================================== entry points
+def lp_topn(w, c, n, rho, equality: bool, engine: Optional[str] = None):
     """max ⟨w,z⟩ s.t. Σz (=|≤) n, ⟨c,z⟩ ≤ ρ, z ∈ [0,1]^K, for rows w/c
     (B, K) with per-row (or shared) n and ρ.
 
     As in the reference, an unattainable ρ (no vertex on the λ ladder meets
     it) returns the λ-cap vertex, which then violates the budget."""
+    if _resolve_engine(engine) == "bisect":
+        return _lp_topn_bisect(*_rows(w, c, n, rho), equality)
     return _grid_wide(*_rows(w, c, n, rho), equality)
 
 
-def _awc_fw(mu_bar, c_low, n, rho):
-    """Continuous greedy (Eq. 3) on rows: FW_STEPS Frank-Wolfe steps, each
-    one `awc_fw` call (gradient + octave costs) and the mantissa rounds of
-    the wide lowering."""
+def lp_topn_dyn(w, c, n, rho, equality: bool, engine: Optional[str] = None):
+    """`lp_topn` with per-row (n, ρ): the reference's traced-n form. Every
+    port solve already takes n and ρ per row, so this is `lp_topn`."""
+    return lp_topn(w, c, n, rho, equality, engine)
+
+
+def _awc_fw(mu_bar, c_low, n, rho, engine: Optional[str] = None,
+            fw_steps: Optional[int] = None):
+    """Continuous greedy (Eq. 3) on rows: ``fw_steps`` Frank-Wolfe steps.
+    On the grid engine each is one `awc_fw` call (gradient + octave costs)
+    and the mantissa rounds of the wide lowering; on the bisect engine the
+    gradient and `_lp_topn_bisect`."""
+    steps = _resolve_fw(fw_steps)
     mu, c, n, rho = _rows(mu_bar, c_low, n, rho)
+    z = torch.zeros_like(mu)
+    div = torch.full_like(mu, float(steps))
+    if _resolve_engine(engine) == "bisect":
+        for _ in range(steps):
+            g = R.awc_multilinear_grad(z, mu)
+            z = z + _lp_topn_bisect(g, c, n, rho, False) / div
+        return z
     lad = _octave_ladder(mu.device).expand(mu.shape[0], LAM_MAX_EXP + 1)
     lad = lad.contiguous()
-    z = torch.zeros_like(mu)
-    for _ in range(FW_STEPS):
+    for _ in range(steps):
         g, oct_costs = kops.awc_fw(z, mu, c, lad, n)
         v = _grid_wide_from_octave(g, c, n, rho, False,
                                    oct_costs <= rho[:, None])
-        z = z + v / FW_STEPS
+        z = z + v / div
     return z
 
 
+def solve_rows(kind: str, mu_bar, c_low, n, rho,
+               engine: Optional[str] = None,
+               fw_steps: Optional[int] = None):
+    """Fractional z̃ rows (B, K) for B instances of one reward model on the
+    device of ``mu_bar`` (B, K); n and ρ shared or per row."""
+    mu_bar = mu_bar.to(torch.float32)
+    if kind == "suc":
+        return lp_topn(mu_bar, c_low, n, rho, True, engine)
+    if kind == "aic":
+        w = R.log_f32(torch.clamp(mu_bar, R.EPS, 1.0))
+        return lp_topn(w, c_low, n, rho, True, engine)
+    if kind == "awc":
+        return _awc_fw(mu_bar, c_low, n, rho, engine, fw_steps)
+    raise ValueError(kind)
+
+
 def solve_relaxed(kind: str, mu_bar, c_low, n: int, rho: float,
-                  device="cuda"):
+                  engine: Optional[str] = None,
+                  fw_steps: Optional[int] = None, device="cuda"):
     """Fractional z̃ (K,) for one instance of the given reward model,
     solved on ``device`` (the inputs are moved there)."""
     dev = resolve_device(device)
     mu_bar = torch.as_tensor(mu_bar, dtype=torch.float32).to(dev)[None]
     c_low = torch.as_tensor(c_low, dtype=torch.float32).to(dev)[None]
-    if kind == "suc":
-        return lp_topn(mu_bar, c_low, n, rho, equality=True)[0]
-    if kind == "aic":
-        w = R.log_f32(torch.clamp(mu_bar, R.EPS, 1.0))
-        return lp_topn(w, c_low, n, rho, equality=True)[0]
-    if kind == "awc":
-        return _awc_fw(mu_bar, c_low, n, rho)[0]
-    raise ValueError(kind)
+    return solve_rows(kind, mu_bar, c_low, n, rho, engine, fw_steps)[0]
 
 
 def kind_rows(kind_ix) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -214,13 +303,16 @@ def kind_rows(kind_ix) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def solve_batch(kind_ix, mu_bar, c_low, n, rho,
-                rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                engine: Optional[str] = None,
+                fw_steps: Optional[int] = None):
     """Batched relaxed solve, one row per tenant with its own kind.
 
     kind_ix (M,) `rewards.KIND_INDEX`, mu_bar/c_low (M, K), n (M,), rho (M,)
     -> z̃ (M, K). SUC and AIC rows go through one equality solve, AWC rows
     through one Frank-Wolfe loop. ``rows`` may carry `kind_rows(kind_ix)`
-    computed once for a fleet whose kinds do not change."""
+    computed once for a fleet whose kinds do not change; ``engine`` and
+    ``fw_steps`` are `lp_topn`'s and `_awc_fw`'s."""
     eq_rows, awc_rows = kind_rows(kind_ix) if rows is None else rows
     mu_bar = mu_bar.to(torch.float32)
     out = torch.zeros_like(mu_bar)
@@ -228,10 +320,10 @@ def solve_batch(kind_ix, mu_bar, c_low, n, rho,
         w = torch.where((kind_ix == AIC_IX)[:, None],
                         R.log_f32(torch.clamp(mu_bar, R.EPS, 1.0)), mu_bar)
         out[eq_rows] = lp_topn(w[eq_rows], c_low[eq_rows], n[eq_rows],
-                               rho[eq_rows], equality=True)
+                               rho[eq_rows], True, engine)
     if awc_rows.numel():
         out[awc_rows] = _awc_fw(mu_bar[awc_rows], c_low[awc_rows],
-                                n[awc_rows], rho[awc_rows])
+                                n[awc_rows], rho[awc_rows], engine, fw_steps)
     return out
 
 

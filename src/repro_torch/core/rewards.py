@@ -37,7 +37,7 @@ def _rounded_from_f64(np_fn, torch_fn, x: torch.Tensor) -> torch.Tensor:
     bits depended on the thread count (ROADMAP F5)."""
     if x.device.type == "cpu":
         with np.errstate(all="ignore"):           # log(0) = -inf, as torch
-            y = np_fn(x.detach().double().numpy())
+            y = np.asarray(np_fn(x.detach().double().numpy()))
         return torch.from_numpy(y).to(torch.float32)
     return torch_fn(x.double()).to(torch.float32)
 
@@ -69,6 +69,30 @@ def sum_in_order(x: torch.Tensor) -> torch.Tensor:
     for i in range(x.shape[-1]):
         acc = acc + x[..., i]
     return acc
+
+
+def prod_in_order(x: torch.Tensor) -> torch.Tensor:
+    """∏ over the last axis, multiplied left to right in arm-index order."""
+    acc = torch.ones_like(x[..., 0])
+    for i in range(x.shape[-1]):
+        acc = acc * x[..., i]
+    return acc
+
+
+def set_reward_in_order(kind: str, mask, mu):
+    """`set_reward` with its sum or product taken in arm-index order, the
+    order XLA's CPU reduction takes over a short row: the values a
+    discrete argmax compares (C2MAB-V-Direct), the same bits on the card
+    and on the CPU."""
+    mask = _f32(mask)
+    mu = _f32(mu, mask)
+    if kind == "awc":
+        return 1.0 - prod_in_order(1.0 - mu * mask)
+    if kind == "suc":
+        return sum_in_order(mu * mask)
+    if kind == "aic":
+        return prod_in_order(torch.where(mask > 0, mu, torch.ones_like(mu)))
+    raise ValueError(kind)
 
 
 def set_reward(kind: str, mask, mu):

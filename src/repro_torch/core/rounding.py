@@ -1,6 +1,6 @@
-"""Discretization rounding (paper §4.2, Algorithm 3) — batched on torch.
+"""Discretization rounding (paper §4.2, Appendix B) — the scheduling cloud.
 
-Port of the fixed-trip driver of `repro.core.rounding`. Pairwise ("pipage")
+Port of `repro.core.rounding`. Pairwise ("pipage")
 rounding merges two fractional coordinates per trip until at most one
 remains, then draws it as a Bernoulli; marginals are kept, E[1_S] = z̃ (up
 to the EPS finalization band). Each trip finalizes at least one coordinate,
@@ -9,11 +9,21 @@ coordinates makes a no-op trip and does not advance its key, so every row's
 draws and result are those of the reference's while and scan drivers, bit
 for bit. Keys are `repro_torch.prng` rows.
 
-The numpy rounding of the reference (`pairwise_round_np`,
-`decompose_bases`, `swap_round_np`) is not ported yet.
+`pairwise_round` is the single-row form with the reference's choice of
+loop: ``trips=0`` (K − 1 fixed trips), a positive int (that many fixed
+trips) or ``None`` (trips until no row has two fractional coordinates left,
+the reference's while loop). K − 1 fixed trips and the while loop give the
+same bits per row.
+
+Algorithm 2 (AWC; swap rounding over cardinality-matroid bases) and the
+numpy form of Algorithm 3 are host-side numpy, copied from the reference:
+`pairwise_round_np`, `decompose_bases`, `swap_round_np`.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
+import numpy as np
 import torch
 
 from repro_torch import prng
@@ -60,13 +70,25 @@ def _finalize(z, key):
     return torch.where(f, (u[:, None] < z).to(torch.float32), torch.round(z))
 
 
-def pairwise_round_batch(z, keys):
-    """Algorithm 3 on every row: z (M, K), keys (M, 2) -> {0,1} (M, K),
-    in K − 1 fixed merge trips (enough for any row)."""
+def pairwise_round_batch(z, keys, trips: Optional[int] = 0):
+    """Algorithm 3 on every row: z (M, K), keys (M, 2) -> {0,1} (M, K).
+
+    ``trips`` selects the loop: 0 runs K − 1 fixed merge trips (enough
+    for any row), a positive int that many, and None merges until no row
+    has two fractional coordinates left."""
     z = torch.clamp(z.to(torch.float32), 0.0, 1.0)
-    for _ in range(z.shape[-1] - 1):
-        z, keys = _merge_step(z, keys)
+    if trips is None:
+        while bool((_frac_mask(z).sum(-1) >= 2).any()):
+            z, keys = _merge_step(z, keys)
+    else:
+        for _ in range(int(trips) or z.shape[-1] - 1):
+            z, keys = _merge_step(z, keys)
     return _finalize(z, keys)
+
+
+def pairwise_round(z, key, trips: Optional[int] = 0):
+    """Algorithm 3 on one row: z (K,), key (2,) -> {0,1} float mask (K,)."""
+    return pairwise_round_batch(z[None], key[None], trips)[0]
 
 
 def pad_to_n_dyn(mask, scores, n, equality):
@@ -80,3 +102,86 @@ def pad_to_n_dyn(mask, scores, n, equality):
     padded = torch.clamp(mask + add, 0.0, 1.0)
     equality = torch.as_tensor(equality, device=mask.device)
     return torch.where(equality[..., None], padded, mask)
+
+
+def pairwise_round_np(z, rng: np.random.Generator) -> np.ndarray:
+    z = np.clip(np.asarray(z, np.float64), 0.0, 1.0)
+    while True:
+        frac = np.flatnonzero((z > EPS) & (z < 1 - EPS))
+        if frac.size < 2:
+            break
+        i, j = frac[0], frac[1]
+        p = min(1 - z[i], z[j])
+        q = min(z[i], 1 - z[j])
+        if rng.random() < q / (p + q):
+            z[i] += p
+            z[j] -= p
+        else:
+            z[i] -= q
+            z[j] += q
+    frac = np.flatnonzero((z > EPS) & (z < 1 - EPS))
+    for i in frac:
+        z[i] = 1.0 if rng.random() < z[i] else 0.0
+    return np.round(z)
+
+
+# ------------------------------------------------------------------ Alg. 2
+def decompose_bases(z: np.ndarray, n: int,
+                    tol: float = 1e-9) -> Tuple[list, list]:
+    """z (K,), Σz == n: convex decomposition into bases of the cardinality
+    matroid (index sets of size n). Returns (weights, bases)."""
+    rem = np.asarray(z, np.float64).copy()
+    total = 1.0
+    weights, bases = [], []
+    for _ in range(4 * len(rem) + 8):
+        if total <= tol:
+            break
+        order = np.argsort(-rem, kind="stable")
+        base = order[:n]
+        g1 = rem[base].min()
+        not_base = order[n:]
+        g2 = total - (rem[not_base].max() if not_base.size else 0.0)
+        gamma = max(min(g1, g2, total), tol / 10)
+        weights.append(gamma)
+        bases.append(np.sort(base))
+        rem[base] -= gamma
+        total -= gamma
+    s = sum(weights)
+    return [w / s for w in weights], bases
+
+
+def swap_round_np(z: np.ndarray, n: int, rng: np.random.Generator,
+                  pad_to_base: bool = True) -> np.ndarray:
+    """Algorithm 2: swap rounding for the cardinality matroid.
+
+    Handles Σz < n (AWC inclusive matroid) by padding with n dummy arms.
+    Returns {0,1} mask over the original K arms.
+    """
+    z = np.clip(np.asarray(z, np.float64), 0.0, 1.0)
+    k = z.shape[0]
+    deficit = max(n - z.sum(), 0.0)
+    if pad_to_base and deficit > 1e-12:
+        pad = np.full(n, deficit / n)
+        z_full = np.concatenate([z, pad])
+    else:
+        z_full = z
+    weights, bases = decompose_bases(z_full, n)
+    cur = set(bases[0].tolist())
+    p1 = weights[0]
+    for p2, b in zip(weights[1:], bases[1:]):
+        b2 = set(b.tolist())
+        while cur != b2:
+            i = next(iter(cur - b2))
+            j = next(iter(b2 - cur))
+            if rng.random() < p1 / (p1 + p2):
+                b2.discard(j)
+                b2.add(i)
+            else:
+                cur.discard(i)
+                cur.add(j)
+        p1 += p2
+    mask = np.zeros(k)
+    for i in cur:
+        if i < k:
+            mask[i] = 1.0
+    return mask

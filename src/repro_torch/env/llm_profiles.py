@@ -7,9 +7,12 @@ costs follow the statistically-based model y = (l_in + l_out)·C_k with
 stochastic output length, normalized so the Table-3 price ordering is
 preserved and expected costs sit in [0,1].
 
+A second pool mode ("zoo") prices the assigned architectures of
+`repro_torch.configs` by active parameter count — the end-to-end mode where
+the bandit routes over real models served by the engine.
+
 A numpy copy of `repro.env.llm_profiles`, so the port imports nothing of
-the JAX package. The "zoo" pool, which prices the model architectures of
-`repro.configs`, waits for the port of the configs.
+the JAX package.
 """
 from __future__ import annotations
 
@@ -77,6 +80,27 @@ def paper_pool(scenario: str = "sciq") -> Pool:
     scale = float(dollars.max() * 1.25)      # headroom: costs in (0, 0.8]
     return Pool(names=tuple(n for n, _ in TABLE3), mu=mu,
                 mean_cost=dollars / scale, cost_scale=scale)
+
+
+def zoo_pool(seed: int = 0) -> Pool:
+    """End-to-end mode: the assigned architectures as the arm pool.
+
+    Cost ∝ active-parameter FLOPs (6·N_active per token); quality is a
+    monotone-but-noisy function of active params (bigger is better on
+    average, with planted per-arch deviations — 'generation diversity').
+    """
+    from repro_torch.configs.base import get_config, list_archs
+    names = list_archs()
+    active = np.array([get_config(n).active_param_count() for n in names],
+                      float)
+    rng = np.random.default_rng(seed)
+    q = 0.30 + 0.55 * (np.log(active) - np.log(active).min()) / (
+        np.log(active).max() - np.log(active).min())
+    mu = np.clip(q + rng.normal(0, 0.08, len(names)), 0.05, 0.95)
+    dollars = active / active.max()          # relative FLOP cost
+    scale = 1.25
+    return Pool(names=tuple(names), mu=mu, mean_cost=dollars / scale,
+                cost_scale=scale)
 
 
 def default_rho(pool: Pool, kind: str, n: int) -> float:

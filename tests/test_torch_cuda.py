@@ -720,3 +720,90 @@ def test_whisper_decode_step_replays_from_a_cuda_graph(dev):
     assert torch.equal(captured, eager)
     for k in ("k", "v"):
         assert torch.equal(graph_cache["self"][k], eager_cache["self"][k])
+
+
+# ============================================ policies and the protocol split
+def _corpus_rows(k, m, seed):
+    """(stats, t) rows as `tests/test_torch_fleet.py:_corpus` makes them."""
+    rng = np.random.default_rng(seed)
+    t_mu = rng.integers(0, 30, (m, k)).astype(np.float32)
+    stats = {"mu_hat": rng.uniform(0, 1, (m, k)) * (t_mu > 0),
+             "c_hat": rng.uniform(0, 0.6, (m, k)) * (t_mu > 0),
+             "t_mu": t_mu, "t_c": t_mu}
+    stats = {n: torch.tensor(v, dtype=torch.float32) for n, v in
+             stats.items()}
+    return stats, torch.tensor(rng.integers(1, 200, m), dtype=torch.float32)
+
+
+@pytest.mark.parametrize("kind", ["awc", "suc", "aic"])
+def test_per_seed_c2mabv_masks_equal_card_and_cpu(dev, kind):
+    """Per-seed C2MAB-V through the kernels on the card picks, row for row,
+    the masks the plain versions pick on the CPU from the same stats and
+    keys (every transcendental rounded from float64, the kernels bit-equal
+    to their plain versions)."""
+    from repro_torch import prng
+    from repro_torch.core.policies import PolicyConfig, make_policy
+    from repro_torch.env.llm_profiles import default_rho, paper_pool
+    pool = paper_pool("sciq")
+    pc = PolicyConfig(kind=kind, k=pool.k, n=4,
+                      rho=default_rho(pool, kind, 4), delta=1 / 60)
+    stats, t = _corpus_rows(pool.k, 512, 11)
+    keys = prng.split(prng.PRNGKey(5, "cpu"), 512)
+    ops.reset_launches()
+    card = make_policy("c2mabv", pc, device=dev)(
+        {n: v.to(dev) for n, v in stats.items()}, keys.to(dev), t.to(dev))
+    assert ops.LAUNCHES["topn_lp"] > 0
+    assert (ops.LAUNCHES["awc_fw"] > 0) == (kind == "awc")
+    cpu = make_policy("c2mabv", pc, device="cpu")(stats, keys, t)
+    assert torch.equal(card.cpu(), cpu)
+
+
+def test_baselines_simulate_on_the_card(dev):
+    """Every policy through the per-seed loop on the card; the
+    deterministic ones pick the CPU's actions."""
+    from repro_torch.core import bandit
+    from repro_torch.core.policies import NAMES, PolicyConfig
+    from repro_torch.env.llm_profiles import default_rho, paper_pool
+    pool = paper_pool("sciq")
+    pc = PolicyConfig(kind="awc", k=pool.k, n=4,
+                      rho=default_rho(pool, "awc", 4), delta=1 / 16)
+    for name in NAMES:
+        kw = {"arm": 8} if name == "fixed" else (
+            {"mask": np.eye(pool.k)[2]} if name == "offline_fixed" else {})
+        res = bandit.simulate(name, pool, pc, T=16, seeds=3, use_fleet=False,
+                              device=dev, **kw)
+        assert np.isfinite(res.reward).all() and (res.action.sum(-1) <= 4).all()
+        if name in ("cucb", "fixed", "offline_fixed", "c2mabv_direct"):
+            ref = bandit.simulate(name, pool, pc, T=16, seeds=3,
+                                  use_fleet=False, device="cpu", **kw)
+            assert np.array_equal(res.action[:, 0], ref.action[:, 0]), name
+
+
+def test_local_server_and_cloud_on_the_card(dev):
+    """`LocalServer` and `SchedulingCloud` on the card give the CPU's z̃ and
+    masks over a recorded sequence."""
+    from repro_torch.core.policies import PolicyConfig
+    from repro_torch.env.llm_profiles import default_rho, paper_pool
+    from repro_torch.router.cloud import Replica, SchedulingCloud
+    from repro_torch.router.local_server import LocalServer
+    pool = paper_pool("sciq")
+    for kind in ("awc", "suc"):
+        pc = PolicyConfig(kind=kind, k=pool.k, n=4,
+                          rho=default_rho(pool, kind, 4), delta=1 / 16)
+        servers = [LocalServer(pc, device=d) for d in (dev, "cpu")]
+        clouds = [SchedulingCloud(pc, [Replica(f"m{i}", None, 1e-3)
+                                       for i in range(pool.k)], device=d)
+                  for d in (dev, "cpu")]
+        rng = np.random.default_rng(0)
+        for _ in range(12):
+            zs = [s.relaxed_selection() for s in servers]
+            assert np.array_equal(zs[0], zs[1])
+            masks = [c.select(zs[0], np.random.default_rng(7))
+                     for c in clouds]
+            assert np.array_equal(masks[0], masks[1])
+            for arm in np.flatnonzero(masks[0]):
+                reward, cost = float(rng.uniform()), float(rng.uniform())
+                for s in servers:
+                    s.record(int(arm), reward, cost)
+        assert np.array_equal(servers[0].mu_hat, servers[1].mu_hat)
+        assert servers[0].state.stats["mu_hat"].device.type == "cuda"

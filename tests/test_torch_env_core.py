@@ -269,6 +269,41 @@ def test_pairwise_round_batch_bit_equal(seed):
         assert np.array_equal(want, got), trips
 
 
+@pytest.mark.parametrize("trips", [0, None, 3])
+def test_pairwise_round_single_row_loops_bit_equal(trips):
+    """The single-row `pairwise_round` under each loop (K − 1 fixed trips,
+    the while loop, 3 fixed trips) against the reference's, and against a
+    row of `pairwise_round_batch` under the same loop."""
+    z = _fractional_rows(5, m=8)
+    jk, tk = _fleet_keys(40, z.shape[0])
+    batch = rounding.pairwise_round_batch(t(z), tk, trips).numpy()
+    for i in range(z.shape[0]):
+        want = np.asarray(jround.pairwise_round(jnp.asarray(z[i]), jk[i],
+                                                trips))
+        got = rounding.pairwise_round(t(z[i]), tk[i], trips).numpy()
+        assert np.array_equal(want, got), (i, trips)
+        assert np.array_equal(batch[i], got), (i, trips)
+
+
+def test_numpy_rounding_copies_match():
+    """`pairwise_round_np`, `decompose_bases` and `swap_round_np` are the
+    reference's numpy: the same draws from one seeded Generator."""
+    z = _fractional_rows(6, m=30).astype(np.float64)
+    for i, row in enumerate(z):
+        want = jround.pairwise_round_np(row, np.random.default_rng(i))
+        got = rounding.pairwise_round_np(row, np.random.default_rng(i))
+        assert np.array_equal(want, got), i
+        n = 4
+        zz = np.clip(row, 0, 1) * min(1.0, n / max(row.sum(), 1e-9))
+        w1, b1 = jround.decompose_bases(zz, n)
+        w2, b2 = rounding.decompose_bases(zz, n)
+        assert w1 == w2 and all(np.array_equal(a, b) for a, b in zip(b1, b2))
+        want = jround.swap_round_np(zz, n, np.random.default_rng(50 + i))
+        got = rounding.swap_round_np(zz, n, np.random.default_rng(50 + i))
+        assert np.array_equal(want, got), i
+        assert got.sum() <= n
+
+
 def test_pad_to_n_dyn_and_round_batch_bit_equal():
     z = _fractional_rows(3)
     m = z.shape[0]

@@ -30,16 +30,18 @@ import torch
 
 from repro.core import bandit as jbandit
 from repro.core import metrics as jmetrics
+from repro.core import policies as jpolicies
 from repro.core.policies import PolicyConfig as JPolicyConfig
 from repro.env.llm_profiles import default_rho, paper_pool as jpaper_pool
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.router import fleet as jfleet
 from repro_torch import convert, prng
-from repro_torch.core import bandit, confidence, metrics, relax
+from repro_torch.core import (bandit, confidence, metrics, partition,
+                               policies, relax)
 from repro_torch.core.policies import PolicyConfig
 from repro_torch.env.llm_profiles import paper_pool
-from repro_torch.router import fleet
+from repro_torch.router import cloud, fleet, local_server
 from repro_torch.configs.base import get_config
 from repro_torch.models import model as model_mod
 from repro_torch.serving.engine import Engine
@@ -123,6 +125,47 @@ def test_tenant_act_matches_wide_lowering_per_decision(decisions, kind):
     rows = kind_of == kind
     bad = np.nonzero((want[rows] != got[rows]).any(-1))[0]
     assert bad.size == 0, bad
+
+
+@pytest.mark.parametrize("kind", ["awc", "suc", "aic"])
+def test_c2mabv_per_seed_policy_matches_per_decision(decisions, kind):
+    """`policies.c2mabv` (the per-seed path of `bandit.simulate`) on the
+    same corpus picks the fixture's masks on every row. The reference's
+    per-seed policy and its fleet `_tenant_act` run the same solve under
+    the wide lowering, and differ in the rounding's loop and the
+    padding's static or per-row matroid flag; that is checked op by op on
+    the first SUC rows (a run op by op costs seconds whatever the row
+    count, ~15 s for AWC's Frank-Wolfe)."""
+    kind_of, want, _ = decisions
+    rows = kind_of == kind
+    pool = jpaper_pool("sciq")
+    stats, ts, keys = _corpus(pool)
+    jpc = JPolicyConfig(kind=kind, k=pool.k, n=4,
+                        rho=default_rho(pool, kind, 4), delta=1 / 60)
+    got = policies.make_policy("c2mabv", convert.policy_config(jpc),
+                               device="cpu")(
+        {k: torch.tensor(v) for k, v in stats.items()},
+        convert.key_rows(keys, "cpu"), torch.tensor(ts)).numpy()
+    bad = np.nonzero((want[rows] != got).any(-1))[0]
+    assert bad.size == 0, bad
+    if kind != "suc":
+        return
+    head = 4
+    act = jpolicies.make_policy("c2mabv", jpc)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TOPN_LP_PALLAS", "1")
+        mp.setenv("REPRO_AWC_FW_PALLAS", "1")
+        mp.setattr(jops, "topn_lp", jref.topn_lp)
+        mp.setattr(jops, "awc_fw", jref.awc_fw)
+        jax.clear_caches()
+        try:
+            with jax.disable_jit():
+                ref = np.asarray(jax.vmap(act)(
+                    {k: jnp.asarray(v[:head]) for k, v in stats.items()},
+                    jnp.asarray(keys[:head]), jnp.asarray(ts[:head])))
+        finally:
+            jax.clear_caches()
+    assert np.array_equal(ref, want[rows][:head])
 
 
 def _mixed_policies(pool):
@@ -253,6 +296,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         fleet.fleet_config([pc])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bandit.simulate("c2mabv", pool, pc, T=1, seeds=1)
+    for name in ("cucb", "thompson"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bandit.simulate(name, pool, pc, T=1, seeds=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bandit.simulate("c2mabv", pool, pc, T=1, seeds=1, use_fleet=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        policies.make_policy("c2mabv_direct", pc)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        partition.make_partition_policy("suc", pool.k, [0] * pool.k, [4],
+                                        rho=0.5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        local_server.LocalServer(pc)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        # select / select_batch round on the cloud's device
+        cloud.SchedulingCloud(pc, [cloud.Replica(f"m{i}", None, 1e-3)
+                                   for i in range(pool.k)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         relax.solve_relaxed("suc", pool.mu, pool.mean_cost, 4, 0.5)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -322,11 +381,15 @@ def test_port_loads_no_jax_and_no_reference_module():
     code = ("import sys\n"
             "import repro_torch, repro_torch.router.fleet, "
             "repro_torch.core.bandit, repro_torch.convert, "
+            "repro_torch.core.policies, repro_torch.core.partition, "
+            "repro_torch.router.local_server, repro_torch.router.cloud, "
+            "repro_torch.env.llm_profiles, "
             "repro_torch.kernels.ops, repro_torch.serving.engine, "
             "repro_torch.models.model, repro_torch.configs.base, "
             "repro_torch.models.ssm, repro_torch.kernels.ssd_scan\n"
             "from repro_torch.configs.base import list_archs\n"
             "list_archs()\n"
+            "repro_torch.env.llm_profiles.zoo_pool()\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.')]\n"

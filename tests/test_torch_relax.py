@@ -160,3 +160,96 @@ def test_solve_direct_and_optimal_value_match(kind):
         jpc = JPolicyConfig(kind=kind, k=K, n=n, rho=rho)
         assert bandit.optimal_value(pool, pc) == \
             jbandit.optimal_value(pool, jpc)
+
+
+# ====================================================== engines and knobs
+def test_bisect_engine_matches_the_reference_bisect(solved):
+    """``engine="bisect"`` against the reference's bisect engine (both
+    compile or run their score as one multiply-add), z̃ within 1e-5."""
+    (kind_ix, mu, c, n, rho, _), _, _, z_bis = solved
+    z = relax.solve_batch(torch.tensor(kind_ix), torch.tensor(mu),
+                          torch.tensor(c), torch.tensor(n), torch.tensor(rho),
+                          engine="bisect").numpy()
+    np.testing.assert_allclose(z, z_bis, atol=1e-5, rtol=0)
+    for i in (0, 13, 30, 55, 70):
+        zi = relax.solve_relaxed(R.KINDS[kind_ix[i]], mu[i], c[i], int(n[i]),
+                                 float(rho[i]), engine="bisect", device="cpu")
+        np.testing.assert_allclose(zi.numpy(), z_bis[i], atol=1e-5, rtol=0)
+    eq = np.nonzero(kind_ix == 1)[0][:6]
+    zl = relax.lp_topn(torch.tensor(mu[eq]), torch.tensor(c[eq]),
+                       torch.tensor(n[eq]), torch.tensor(rho[eq]), True,
+                       engine="bisect")
+    assert torch.equal(zl, relax.lp_topn_dyn(
+        torch.tensor(mu[eq]), torch.tensor(c[eq]), torch.tensor(n[eq]),
+        torch.tensor(rho[eq]), True, engine="bisect"))
+    np.testing.assert_allclose(zl.numpy(), z_bis[eq], atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="unknown LP engine"):
+        relax.lp_topn(torch.tensor(mu[eq]), torch.tensor(c[eq]), 2, 1.0, True,
+                      engine="simplex")
+
+
+F6_SEEDS = (161, 378, 560, 1885, 4892)   # ROADMAP F6: grid ≠ bisect there
+
+
+def _f6_instance(seed):
+    """`tests/test_relax_rounding.py:make_instance` (K in 3..8)."""
+    rng = np.random.default_rng(seed)
+    k = int(rng.integers(3, 9))
+    n = int(rng.integers(1, k))
+    mu = rng.uniform(0.05, 0.99, k)
+    c = rng.uniform(0.01, 0.6, k)
+    rho = float(np.sort(c)[:n].sum() * rng.uniform(1.05, 2.5))
+    return mu.astype(np.float32), c.astype(np.float32), n, rho
+
+
+@pytest.mark.parametrize("seed", F6_SEEDS)
+def test_bisect_engine_at_the_f6_seeds(seed):
+    """The instances where the reference's grid and bisect engines part
+    (F6): the port's bisect engine is still the reference's bisect, and
+    its grid engine is reported against it, not dropped."""
+    mu, c, n, rho = _f6_instance(seed)
+    for kind in ("suc", "aic", "awc"):
+        want = np.asarray(jrelax.solve_relaxed(
+            kind, jnp.asarray(mu), jnp.asarray(c), n, rho, engine="bisect"))
+        got = relax.solve_relaxed(kind, mu, c, n, rho, engine="bisect",
+                                  device="cpu").numpy()
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+        grid = relax.solve_relaxed(kind, mu, c, n, rho, device="cpu").numpy()
+        assert float(c @ grid) <= rho * 1.002 + 1e-5
+        assert np.all(grid >= -1e-6) and np.all(grid <= 1 + 1e-6)
+
+
+def test_fw_steps_match_the_wide_lowering(solved):
+    """``fw_steps`` 4, 8 and 16 on the AWC rows (with the F6 instances' AWC
+    rows padded to K = 9 by zero-reward arms) against the JAX wide lowering
+    op by op (one run for the three, which share its op caches)."""
+    (kind_ix, mu, c, n, rho, _), _, _, _ = solved
+    awc = np.nonzero(kind_ix == 0)[0][::2]
+    rows = [(mu[i], c[i], n[i], rho[i]) for i in awc]
+    for seed in F6_SEEDS:
+        m, cc, nn, rr = _f6_instance(seed)
+        pad = K - len(m)
+        rows.append((np.r_[m, np.zeros(pad, np.float32)],
+                     np.r_[cc, np.full(pad, 0.5, np.float32)], nn, rr))
+    m, cc, nn, rr = (np.asarray(x) for x in zip(*rows))
+    args = (np.zeros(len(nn), np.int32), m.astype(np.float32),
+            cc.astype(np.float32), nn.astype(np.int32), rr.astype(np.float32))
+    steps = (4, 8, 16)
+    got = [relax.solve_batch(*(torch.tensor(a) for a in args),
+                             fw_steps=s).numpy() for s in steps]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TOPN_LP_PALLAS", "1")
+        mp.setenv("REPRO_AWC_FW_PALLAS", "1")
+        mp.setattr(jops, "topn_lp", jref.topn_lp)
+        mp.setattr(jops, "awc_fw", jref.awc_fw)
+        jax.clear_caches()
+        try:
+            with jax.disable_jit():
+                want = [np.asarray(jrelax.solve_batch(
+                    *(jnp.asarray(a) for a in args), kinds_present=(0,),
+                    fw_steps=s)) for s in steps]
+        finally:
+            jax.clear_caches()
+    for s, g, w in zip(steps, got, want):
+        np.testing.assert_allclose(g, w, atol=1e-5, rtol=0, err_msg=str(s))
+    assert not np.array_equal(got[0], got[2])

@@ -35,7 +35,9 @@ Phases, each of which fails the run on any mismatch:
                 at non-causal S != T pairs on the tile edges (S 7 / T 300,
                 S 129 / T 77, S 300 / T 129), and at Qwen2-VL-72B's prefill
                 (4 x 2,304) and decode step (64 / 8 heads of 128); those of
-                the two models are timed too
+                the two models are timed too; and at a scheduler's shapes
+                (phases 7e-7g): prefill buckets of 1 and 8 rows of 16
+                tokens, a decode over 32 slots with idle ones at pos 0
   4. decision   a 4096-tenant mixed fleet runs 16 rounds on the card; from
                 its state one `_tenant_act` runs on the card (kernels) and
                 on the CPU (plain versions) with the same keys; the CPU's
@@ -73,6 +75,33 @@ Phases, each of which fails the run on any mismatch:
                 16 tokens for 2 prompts of 128 (`dispatch`); every kernel
                 launch gated (4 `topn_lp` a round, 2 `flash_attention` a
                 dispatch, 2 `decode_attention` a decode step)
+  7e. service   the paper's Fig. 3 service: `MultiLLMService` over the same
+                pool and a 2-layer engine like 7d's, SUC and AWC (n 4), each
+                primed with the same records and run 32 rounds in the
+                continuous mode (the scheduler, 32 slots, chunks of 8) and
+                32 in the sequential one (`dispatch`), 2 x 16-token prompts,
+                8 new tokens; every round drains, each observed arm is
+                recorded once in its round, every launch is gated
+                (`topn_lp` / `awc_fw` a solve, `flash_attention` a prefill
+                bucket and `decode_attention` a decode step per layer,
+                counted from the runners' tick logs); printed: s per tick,
+                decode steps per tick, occupied slots, the share of
+                completions token-equal between the modes and whether the
+                bandit ends in the same state
+  7f. driven-fleet  `simulate_fleet_driven`: 8 tenants (4 AWC, 4 SUC) over
+                one shared scheduler of 9 replicas of StarCoder2-7B at full
+                width and depth (phase 8's weights), 32 slots, chunks of 8,
+                4 rounds, 16 new tokens a row; rewards and costs finite,
+                key rows not zero, launches gated; printed: occupied slots
+                per decode step and the decode batches that mix tenants
+  7g. chaos     7e's SUC service at 16 new tokens (two chunks, so a doomed
+                request can crash after its first) under per-replica
+                `FaultPlan`s: failures at 0.2 everywhere, decode crashes on
+                one replica, an outage over the first submissions of
+                another; the drain ends every round, the outage replica
+                walks quarantine -> probation -> healthy, every contained
+                crash is one the plan injected, and every verdict is the
+                one the card's uniforms give
   8. serve      the serving path: StarCoder2-7B at full width (bf16 weights
                 from `init_params`, seed 0) behind `Engine`: `generate` on 4
                 prompts of 2,048 tokens, then the slot API (8 slots, two
@@ -192,6 +221,15 @@ PROTOCOL_DISPATCH = (1, 9, 17, 25)   # rounds whose arms generate
 PROTOCOL_LAYERS = 2              # StarCoder2-7B's 32 layers cut to 2
 PROTOCOL_PROMPTS = (2, 128)      # prompts per dispatched arm, tokens
 PROTOCOL_NEW = 16                # tokens generated per prompt
+SERVICE_ROUNDS = 32              # rounds of each dispatch mode (phase 7e)
+SERVICE_PROMPTS = (2, 16)        # rows of a request, prompt tokens (7e-7g)
+SERVICE_NEW = 8                  # tokens a row generates in 7e: one chunk
+DRIVEN_NEW = 16                  # ... in 7f and 7g: two chunks
+SERVICE_SLOTS, SERVICE_CHUNK = 32, 8   # a runner's slots, decode chunk
+DRIVEN_KINDS = ("awc",) * 4 + ("suc",) * 4   # phase 7f's tenants
+DRIVEN_ROUNDS = 4
+CHAOS_ROUNDS = 16                # phase 7g
+CHAOS_CRASH, CHAOS_OUTAGE = 2, 8   # replicas: decode crashes, an outage
 SERVE_ARCH = "starcoder2-7b"     # the serving path's model (phase 8)
 WINDOW_ARCH = "h2o-danube-3-4b"  # head_dim 120, sliding window (phase 10b)
 SSM_ARCH = "mamba2-780m"         # the SSM serving path's model (phase 11)
@@ -918,22 +956,13 @@ def phase_protocol(pool, ops, dev) -> None:
     relaxation, one `SchedulingCloud` over the paper pool rounds it and
     dispatches generation; the K replicas share one engine of StarCoder2-7B
     at full width over `PROTOCOL_LAYERS` layers (bf16)."""
-    from repro_torch.core.policies import PolicyConfig
-    from repro_torch.env.llm_profiles import TABLE3, default_rho
-    from repro_torch.router.cloud import Replica, SchedulingCloud
     from repro_torch.router.local_server import LocalServer
     from repro_torch.serving.engine import Engine
     cfg, params = full_width(SERVE_ARCH, dev, "protocol", PROTOCOL_LAYERS)
     eng = Engine(cfg, params, max_len=256, temperature=0.7,
                  dtype=torch.bfloat16, device=dev)
-    pcfg = PolicyConfig(kind="suc", k=pool.k, n=4,
-                        rho=default_rho(pool, "suc", 4),
-                        delta=1 / PROTOCOL_ROUNDS)
-    # Table 3's $ per 1k tokens, per token in the pool's normalized units
-    price = np.asarray([p for _, p in TABLE3]) / 1000.0 / pool.cost_scale
+    pcfg, cloud = paper_cloud(pool, "suc", eng, dev, PROTOCOL_ROUNDS)
     local = LocalServer(pcfg, device=dev)
-    cloud = SchedulingCloud(pcfg, [Replica(name, eng, float(p)) for name, p
-                                   in zip(pool.names, price)], device=dev)
     rng = np.random.default_rng(0)
     b, plen = PROTOCOL_PROMPTS
     eng.generate(rng.integers(0, cfg.vocab, (1, 16)), 2)      # warm-up
@@ -979,6 +1008,313 @@ def phase_protocol(pool, ops, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def paper_cloud(pool, kind: str, eng, dev, rounds: int = SERVICE_ROUNDS):
+    """(pcfg, cloud): ``kind`` at n 4 with its default ρ and δ = 1/rounds,
+    and a `SchedulingCloud` of the paper pool's replicas, each ``eng`` at
+    Table 3's price ($ per 1k tokens, per token in the pool's units)."""
+    from repro_torch.core.policies import PolicyConfig
+    from repro_torch.env.llm_profiles import TABLE3, default_rho
+    from repro_torch.router.cloud import Replica, SchedulingCloud
+    pcfg = PolicyConfig(kind=kind, k=pool.k, n=4,
+                        rho=default_rho(pool, kind, 4), delta=1 / rounds)
+    price = np.asarray([p for _, p in TABLE3]) / 1000.0 / pool.cost_scale
+    return pcfg, SchedulingCloud(pcfg, [Replica(name, eng, float(p))
+                                        for name, p in zip(pool.names, price)],
+                                 device=dev)
+
+
+def service_data(cfg):
+    """The services' query stream: 2 rows of 16 tokens a round."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    b, plen = SERVICE_PROMPTS
+    return SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=plen,
+                                  global_batch=b, seed=0))
+
+
+def prime(svc, pool) -> None:
+    """Two records an arm: reward μ, cost a request's tokens at its price."""
+    b, plen = SERVICE_PROMPTS
+    for arm in np.tile(np.arange(pool.k), 2):
+        svc.local.record(int(arm), float(pool.mu[arm]),
+                         b * (plen + svc.max_new)
+                         * float(svc.cloud.prices[arm]))
+
+
+def tick_totals(sched) -> dict:
+    """Sums over every runner's tick log (`ReplicaRunner.tick_log`)."""
+    log = [t for r in sched.runners for t in r.tick_log]
+    steps = sum(t.decode_steps for t in log)
+    return {"ticks": len(log), "buckets": sum(t.buckets for t in log),
+            "steps": steps,
+            "occupied": sum(t.occupied * t.decode_steps for t in log)
+            / max(steps, 1),
+            "mixed": sum(1 for t in log if len(t.tenants) > 1),
+            "batches": sum(1 for t in log if t.decode_steps)}
+
+
+def serving_launches(cfg, solves: dict, buckets: int, steps: int) -> dict:
+    """The launches of ``solves`` ({kind: count}) one-row relaxed solves,
+    ``buckets`` prefills and ``steps`` decode steps."""
+    want = {"flash_attention": buckets * cfg.n_layers,
+            "decode_attention": steps * cfg.n_layers}
+    for kind, n in solves.items():     # a one-row solve: a per-seed round
+        for name, per in PER_SEED_LAUNCHES[kind].items():
+            want[name] = want.get(name, 0) + n * per
+    return want
+
+
+def check_records(tag: str, svc, logs, first: int) -> None:
+    """Each observed arm of each round recorded once, in its round."""
+    by_round = {}
+    for rec in svc.local.log[first:]:
+        by_round.setdefault(rec.round, []).append(rec.arm)
+    for i, log in enumerate(logs):
+        got = sorted(by_round.get(svc._round - len(logs) + i + 1, []))
+        if got != np.flatnonzero(log.observed).tolist():
+            fail(f"{tag}: round {i + 1} recorded arms {got}, observed "
+                 f"{np.flatnonzero(log.observed).tolist()}")
+    if len(svc.local.log) - first != sum(int(l.observed.sum()) for l in logs):
+        fail(f"{tag}: {len(svc.local.log) - first} records for "
+             f"{sum(int(l.observed.sum()) for l in logs)} observations")
+
+
+def phase_service(pool, ops, dev, eng, cfg) -> None:
+    """Phase 7e: `MultiLLMService` in both dispatch modes, SUC and AWC."""
+    from repro_torch.router.service import MultiLLMService
+    data = service_data(cfg)
+    plen = SERVICE_PROMPTS[1]
+    for kind in ("suc", "awc"):
+        pcfg, cloud = paper_cloud(pool, kind, eng, dev)
+        runs = {}
+        for mode in ("continuous", "sequential"):
+            svc = MultiLLMService(pcfg, cloud, data, prompt_len=plen,
+                                  max_new=SERVICE_NEW, seed=0,
+                                  dispatch=mode)
+            prime(svc, pool)
+            first = len(svc.local.log)
+            tokens = {}
+            if mode == "sequential":      # keep each dispatch's tokens
+                def dispatch(arm, prompts, max_new, seed=0,
+                             _run=cloud.dispatch):
+                    out, cost = _run(arm, prompts, max_new, seed=seed)
+                    tokens[(seed, int(arm))] = out.tokens
+                    return out, cost
+                cloud.dispatch = dispatch
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logs = []
+            for _ in range(SERVICE_ROUNDS):
+                if mode == "sequential":
+                    logs.append(svc.step())
+                    continue
+                svc.begin_round()
+                for c in svc.sched.drain():
+                    tokens[(c.request.seed, c.request.arm)] = c.result.tokens
+                logs.append(svc.finish_round())
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if mode == "sequential":
+                del cloud.dispatch
+            tag = f"service {kind} {mode}"
+            if svc._cur is not None or len(logs) != SERVICE_ROUNDS:
+                fail(f"{tag}: a round did not finish")
+            check_records(tag, svc, logs, first)
+            if kind == "suc" and any((l.observed != l.action).any()
+                                     for l in logs):
+                fail(f"{tag}: a selected arm was not observed")
+            obs = sum(int(l.observed.sum()) for l in logs)
+            if mode == "continuous":
+                tt = tick_totals(svc.sched)
+                buckets, steps = tt["buckets"], tt["steps"]
+                extra = (f"{tt['ticks']} ticks, {secs / tt['ticks']:.4f} s "
+                         f"a tick, {steps / tt['ticks']:.2f} decode steps a "
+                         f"tick, {tt['occupied']:.2f} occupied slots a "
+                         f"decode step, {buckets} prefill buckets")
+            else:
+                buckets, steps = obs, obs * (SERVICE_NEW - 1)
+                extra = f"{obs} dispatches"
+            print(f"{tag}: {SERVICE_ROUNDS} rounds in {secs:.2f} s, {obs} "
+                  f"completions; {extra}; launches {dict(ops.LAUNCHES)}",
+                  flush=True)
+            expect_launches(ops, serving_launches(
+                cfg, {kind: SERVICE_ROUNDS}, buckets, steps), tag)
+            runs[mode] = (svc, logs, tokens)
+        (con, clogs, ctok), (seq, slogs, stok) = runs["continuous"], \
+            runs["sequential"]
+        common = sorted(set(ctok) & set(stok))
+        equal = sum(np.array_equal(ctok[k], stok[k]) for k in common)
+        same_logs = all(np.array_equal(a.action, b.action)
+                        and np.array_equal(a.observed, b.observed)
+                        and np.array_equal(a.rewards, b.rewards)
+                        and a.cost == b.cost for a, b in zip(clogs, slogs))
+        same_state = all(np.array_equal(getattr(con.local, n),
+                                         getattr(seq.local, n))
+                         for n in ("mu_hat", "c_hat", "t_mu", "t_c"))
+        print(f"service {kind}: continuous vs sequential: token-equal "
+              f"completions {equal}/{len(common)} "
+              f"({equal / max(len(common), 1):.4f}); round logs equal: "
+              f"{same_logs}; final bandit state equal: {same_state}; "
+              f"mean observed reward {con.summary()['mean_observed_reward']:.4f}"
+              f" / {seq.summary()['mean_observed_reward']:.4f}", flush=True)
+
+
+def phase_driven_fleet(pool, ops, dev, cfg, params) -> None:
+    """Phase 7f: `simulate_fleet_driven`, 8 mixed tenants over one shared
+    scheduler of full-depth StarCoder2-7B replicas."""
+    from repro_torch.router import fleet
+    from repro_torch.serving.engine import Engine
+    eng = Engine(cfg, params, max_len=64, temperature=0.7,
+                 dtype=torch.bfloat16, device=dev)
+    pcfgs = [paper_cloud(pool, k, eng, dev, DRIVEN_ROUNDS)[0]
+             for k in DRIVEN_KINDS]
+    _, cloud = paper_cloud(pool, "suc", eng, dev, DRIVEN_ROUNDS)
+    made = []
+
+    def make_scheduler(_make=cloud.make_scheduler, **kw):
+        made.append(_make(**kw))       # keep the fleet's scheduler to read
+        return made[-1]
+    cloud.make_scheduler = make_scheduler
+    b, plen = SERVICE_PROMPTS
+    eng.generate(np.ones((b, plen), np.int64), 2)         # warm-up
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fleet.simulate_fleet_driven(
+        pcfgs, cloud, service_data(cfg), T=DRIVEN_ROUNDS, prompt_len=plen,
+        max_new=DRIVEN_NEW, n_slots=SERVICE_SLOTS, chunk=SERVICE_CHUNK,
+        seed=0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    tt = tick_totals(made[0])
+    solves = {k: DRIVEN_ROUNDS * DRIVEN_KINDS.count(k)
+              for k in set(DRIVEN_KINDS)}
+    print(f"driven-fleet: {len(pcfgs)} tenants ({DRIVEN_KINDS.count('awc')} "
+          f"AWC, {DRIVEN_KINDS.count('suc')} SUC) x {DRIVEN_ROUNDS} rounds "
+          f"over {cfg.name} ({cfg.n_layers} layers, bf16) in {secs:.2f} s "
+          f"({secs / DRIVEN_ROUNDS:.2f} s a round); {tt['ticks']} ticks, "
+          f"{secs / max(tt['ticks'], 1):.4f} s a tick, "
+          f"{tt['steps'] / max(tt['ticks'], 1):.2f} decode steps a tick; "
+          f"{tt['batches']} decode batches, {tt['mixed']} of them mixing "
+          f"tenants; {tt['occupied']:.2f} of {SERVICE_SLOTS} slots occupied "
+          f"a decode step; {tt['buckets']} prefill buckets; observed "
+          f"{int(res.observed.sum())} of {int(res.action.sum())} selected; "
+          f"mean reward {res.reward.mean():.4f}, mean cost "
+          f"{res.cost.mean():.5f}; launches {dict(ops.LAUNCHES)}",
+          flush=True)
+    expect_launches(ops, serving_launches(cfg, solves, tt["buckets"],
+                                          tt["steps"]), "driven-fleet")
+    if not (np.isfinite(res.reward).all() and np.isfinite(res.cost).all()):
+        fail("driven-fleet: non-finite reward or cost")
+    if res.reward.shape != (len(pcfgs), DRIVEN_ROUNDS) or \
+            not (res.cost > 0).all():
+        fail(f"driven-fleet: a tenant round with no cost "
+             f"{res.cost.tolist()}")
+    if not (res.state.key != 0).any(dim=1).all():
+        fail("driven-fleet: a tenant's key row is zero")
+    del eng, made
+    torch.cuda.empty_cache()
+
+
+def card_verdict(plan, rep: int, rid: int, attempt: int, dev):
+    """`FaultPlan.draw`'s verdict from uniforms drawn on ``dev``."""
+    from repro_torch import prng
+    from repro_torch.serving.faults import NO_FAULT, FaultDraw
+    lo, hi = plan.rid_window or (rid, rid + 1)
+    if not plan.enabled or not lo <= rid < hi:
+        return NO_FAULT
+    key = prng.PRNGKey(plan.fault_seed, device=dev)
+    for x in (rep, rid, attempt):
+        key = prng.fold_in(key, x)
+    u = prng.uniform(key, (3,)).cpu().numpy()
+    fails = bool(u[0] < plan.fail_prob(rep))
+    return FaultDraw(fails=fails, crash=fails and plan.crash_on_decode,
+                     fail_tick=int(u[2] * (plan.fail_tick_max + 1)),
+                     spike=plan.spike_ticks if u[1] < plan.spike_prob else 0)
+
+
+def phase_chaos(pool, ops, dev, eng, cfg) -> None:
+    """Phase 7g: 7e's SUC service under per-replica fault plans."""
+    from repro_torch.router.service import MultiLLMService
+    from repro_torch.serving.faults import EngineCrash, FaultPlan, HealthPolicy
+    from repro_torch.serving.scheduler import (ContinuousScheduler,
+                                               ReplicaRunner)
+    pcfg, cloud = paper_cloud(pool, "suc", eng, dev)
+    plans = {i: FaultPlan(fault_seed=7, fail_prob=0.2,
+                          crash_on_decode=i == CHAOS_CRASH)
+             for i in range(pool.k)}
+    plans[CHAOS_OUTAGE] = FaultPlan(fault_seed=7, fail_prob=1.0,
+                                    fail_tick_max=0, rid_window=(0, 2))
+    draws = []
+    for i, plan in plans.items():
+        def draw(rep, rid, attempt, _draw=plan.draw, _plan=plan):
+            d = _draw(rep, rid, attempt)
+            draws.append((_plan, rep, rid, attempt, d))
+            return d
+        plan.draw = draw
+    hp = HealthPolicy(max_retries=1, quarantine_after=3, probation_ticks=2,
+                      readmit_successes=1)
+    runners = [ReplicaRunner(r.engine, n_slots=SERVICE_SLOTS,
+                             chunk=SERVICE_CHUNK, replica_ix=i,
+                             fault_plan=plans[i], health=hp)
+               for i, r in enumerate(cloud.replicas)]
+    injected = [0]
+
+    def counted(_check=runners[CHAOS_CRASH]._maybe_injected_crash):
+        try:
+            _check()
+        except EngineCrash:
+            injected[0] += 1
+            raise
+    runners[CHAOS_CRASH]._maybe_injected_crash = counted
+    sched = ContinuousScheduler(runners, tick_budget=1000)
+    svc = MultiLLMService(pcfg, cloud, service_data(cfg),
+                          prompt_len=SERVICE_PROMPTS[1], max_new=DRIVEN_NEW,
+                          seed=0, dispatch="continuous", scheduler=sched)
+    prime(svc, pool)
+    first = len(svc.local.log)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = svc.run(CHAOS_ROUNDS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    tt = tick_totals(sched)
+    stats = sched.stats()
+    out_log = [s.value for _, s in runners[CHAOS_OUTAGE].health_log]
+    failed = sum(int(l.failed.sum()) for l in logs)
+    print(f"chaos: {CHAOS_ROUNDS} rounds in {secs:.2f} s, {tt['ticks']} "
+          f"ticks; {failed} failed of "
+          f"{sum(int(l.observed.sum()) for l in logs)} observations; "
+          f"crashes on replica {CHAOS_CRASH}: {stats[CHAOS_CRASH]['crashes']}"
+          f" contained, {injected[0]} injected; outage replica "
+          f"{CHAOS_OUTAGE}: {out_log}; {len(draws)} fault draws; per "
+          f"replica {[(s['failures'], s['retries'], s['quarantines']) for s in stats]}"
+          f"; launches {dict(ops.LAUNCHES)}", flush=True)
+    if svc._cur is not None or len(logs) != CHAOS_ROUNDS:
+        fail("chaos: a round did not finish")
+    check_records("chaos", svc, logs, first)
+    expect_launches(ops, serving_launches(cfg, {"suc": CHAOS_ROUNDS},
+                                          tt["buckets"], tt["steps"]),
+                    "chaos")
+    want = ["quarantined", "probation", "healthy"]
+    if not any(out_log[i:i + 3] == want for i in range(len(out_log))) or \
+            out_log[-1] != "healthy":
+        fail(f"chaos: replica {CHAOS_OUTAGE}'s health went {out_log}")
+    if stats[CHAOS_CRASH]["crashes"] != injected[0] or not injected[0]:
+        fail(f"chaos: {stats[CHAOS_CRASH]['crashes']} crashes contained, "
+             f"{injected[0]} injected")
+    if sum(s["crashes"] for s in stats) != injected[0]:
+        fail("chaos: a crash was contained on a replica without crashes")
+    # every verdict the run drew, again from uniforms drawn on the card
+    for plan, rep, rid, attempt, d in draws:
+        if card_verdict(plan, rep, rid, attempt, dev) != d:
+            fail(f"chaos: verdict {d} of ({rep}, {rid}, {attempt}) is not "
+                 "the one the card's uniforms give")
+    print(f"chaos: {len(draws)} verdicts equal to the card's draws",
+          flush=True)
+
+
 def phase_attention_kernels(ops, dev):
     """flash_attention and decode_attention against their plain versions at
     the serving path's shapes and at small, ragged and masked ones; returns
@@ -1005,7 +1341,9 @@ def phase_attention_kernels(ops, dev):
     # 64: its encoder over 1,500 frames and its decoder's cross-attention,
     # 64 prompt tokens against them, both non-causal), S != T pairs on the
     # tile edges, and Qwen2-VL-72B's prefill of 4 x (256 vision + 2,048
-    # text) positions (64 / 8 heads of 128), the three timed
+    # text) positions (64 / 8 heads of 128), the three timed; "bucket16"
+    # is a scheduler's prefill bucket of 1 or 8 rows of 16 tokens at
+    # StarCoder2-7B's heads (phases 7e-7g), far below the 128-row tiles
     F = FlashCase
     cases = [F("main", 4, 2048, 36, 4, 128, True, None, bf16),
              F("olmoe", 4, 2048, 16, 16, 128, True, None, bf16),
@@ -1036,7 +1374,9 @@ def phase_attention_kernels(ops, dev):
         ("S7T300", 2, 7, 8, 2, 64, False, None, 300),
         ("S129T77", 1, 129, 9, 1, 128, False, None, 77),
         ("S300T129", 1, 300, 8, 2, 128, False, None, 129),
-        ("qwen2-vl", 4, 2304, 64, 8, 128, True, None)] for dt in (bf16, f32)]
+        ("qwen2-vl", 4, 2304, 64, 8, 128, True, None),
+        ("bucket16x1", 1, 16, 36, 4, 128, True, None),
+        ("bucket16x8", 8, 16, 36, 4, 128, True, None)] for dt in (bf16, f32)]
     errs, worst, main, worst_row, shapes = [], 0.0, None, 0.0, {}
     for label, b, s, h, kv, hd, causal, window, dt, t in cases:
         t = t or s
@@ -1107,11 +1447,14 @@ def phase_attention_kernels(ops, dev):
     # last three are Whisper-large-v3's cross-attention step (every row at
     # pos T - 1 over 1,500 encoder frames: all of them), its self-attention
     # step over its 448-slot context with a row of pos -1, and Qwen2-VL-72B's
-    # step (64 / 8 heads of 128), each timed in bf16
+    # step (64 / 8 heads of 128), each timed in bf16; "slots32" is a
+    # scheduler's decode over 32 slots of a 64-slot cache: 8 never
+    # admitted (pos 0), 16 mid-request, 8 frozen at the budget's end
     main_pos = [1100, 1110, 1120, 1130, 3040, 3041, 3047, 3055]
     whisper_pos = [3, 67, 130, 200, 227, 300, 447, -1]
     full_ring = [4095, 4096, 4200, 5000, 6143, 7000, 8191, 9000]
     ring = [100, 4095, 4200, 9000, -1, 0, 2047, 5000]
+    slots_pos = [0] * 8 + list(range(16, 32)) + [32] * 8
     cases = [("main", 8, 4096, 36, 4, 128, main_pos, bf16),
              ("olmoe", 8, 4096, 16, 16, 128, main_pos, bf16),
              ("h2o", 8, 4096, 32, 8, 120, full_ring, bf16),
@@ -1137,7 +1480,8 @@ def phase_attention_kernels(ops, dev):
     cases += [(*c, dt) for c in [
         ("whisper-cross", 8, 1500, 20, 20, 64, [1499] * 8),
         ("whisper-self", 8, 448, 20, 20, 64, whisper_pos),
-        ("qwen2-vl", 8, 4096, 64, 8, 128, main_pos)] for dt in (bf16, f32)]
+        ("qwen2-vl", 8, 4096, 64, 8, 128, main_pos),
+        ("slots32", 32, 64, 36, 4, 128, slots_pos)] for dt in (bf16, f32)]
     worst, main, worst_row, shapes = 0.0, None, 0.0, {}
     for label, b, t, h, kv, hd, pos, dt in cases:
         q = rnd((b, 1, h, hd), dt)
@@ -1404,11 +1748,12 @@ AUDIO_TRAFFIC = Traffic(slots=((4, 64), (64, 64)), gen_len=4, gen_new=224,
 
 
 def phase_serve(ops, dev, arch: str, tag: str, traffic: Traffic,
-                layers: Optional[int] = None):
-    """A serving path at full width; returns (launches, params, cfg)."""
+                layers: Optional[int] = None, built=None):
+    """A serving path at full width (``built``: its (cfg, params) already
+    made); returns (launches, params, cfg)."""
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Engine
-    cfg, params = full_width(arch, dev, tag, layers)
+    cfg, params = built or full_width(arch, dev, tag, layers)
     eng = Engine(cfg, params, max_len=traffic.max_len, temperature=0.7,
                  dtype=torch.bfloat16, device=dev)
     rng = np.random.default_rng(0)
@@ -1695,6 +2040,7 @@ def main() -> None:
     from repro_torch.kernels import awc_fw as awc
     from repro_torch.kernels import ops
     from repro_torch.kernels import topn_lp as topn
+    from repro_torch.serving.engine import Engine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1715,8 +2061,17 @@ def main() -> None:
     phase_baselines(pool, ops, dev, BASELINE_ROUNDS)
     phase_per_seed(pool, ops, dev, PER_SEED, PER_SEED_ROUNDS)
     phase_protocol(pool, ops, dev)
+    small_cfg, small = full_width(SERVE_ARCH, dev, "service", PROTOCOL_LAYERS)
+    eng = Engine(small_cfg, small, max_len=64, temperature=0.7,
+                 dtype=torch.bfloat16, device=dev)
+    phase_service(pool, ops, dev, eng, small_cfg)
+    cfg, params = full_width(SERVE_ARCH, dev, "serve")
+    phase_driven_fleet(pool, ops, dev, cfg, params)
+    phase_chaos(pool, ops, dev, eng, small_cfg)
+    del eng, small
     serve_launches, params, cfg = phase_serve(ops, dev, SERVE_ARCH, "serve",
-                                              SERVE_TRAFFIC)
+                                              SERVE_TRAFFIC,
+                                              built=(cfg, params))
     for name in ("flash_attention", "decode_attention"):
         if serve_launches[name] == 0:
             fail(f"{name} never launched on the serving path")

@@ -6,14 +6,20 @@ Parameters are plain dicts of tensors with the JAX leaf names (`wq`, `wk`,
 implementation (``impl``):
 
   auto, pallas — on a CUDA tensor the hand-written `flash_attention`
-                 kernel (`kernels.ops`); on a CPU tensor `_attend_naive`.
-                 "pallas" keeps the JAX name so a reader finds the
-                 counterpart; the kernel takes no q_offset and raises on
-                 one.
+                 kernel (`kernels.ops`), and nothing else. On a CPU tensor
+                 "auto" picks as JAX does: `_attend_naive` below
+                 ``CHUNKED_THRESHOLD`` query tokens, chunked from there;
+                 "pallas" takes `_attend_naive`. "pallas" keeps the JAX
+                 name so a reader finds the counterpart; the kernel takes
+                 no q_offset and raises on one.
   naive        — one einsum over the full (S, T) score matrix.
-
-The JAX package's XLA "flash" (`_attend_chunked`, `_online_block` and its
-banded sliding-window variant) waits (ROADMAP.md, A26).
+  chunked      — JAX's XLA "flash" in plain PyTorch: a loop over q chunks,
+                 each an online softmax over kv chunks (m, l and the
+                 accumulator in fp32), never forming (S, T); with a sliding
+                 window a banded variant reads only the keys a q chunk can
+                 see. Below 2·``Q_CHUNK`` query tokens it is naive, as in
+                 JAX. It is not a kernel and replaces none: the TPU
+                 kernel's counterpart is `flash_attention`.
 
 Decode writes the new token's K/V into the cache in place (JAX donates the
 cache buffer and scatters; the port updates the tensor it is given) and
@@ -44,6 +50,9 @@ from repro_torch.models import rope as rope_mod
 from repro_torch.models.layers import ParamSpec, einsum
 
 NEG_INF = -1e30
+CHUNKED_THRESHOLD = 2048
+Q_CHUNK = 512
+KV_CHUNK = 1024
 
 
 # ------------------------------------------------------------------ schema
@@ -90,35 +99,119 @@ def _attend_naive(q, k, v, *, causal: bool, window: Optional[int],
     v = _repeat_kv(v, h // v.shape[2])
     scores = einsum("bshk,bthk->bhst", q, k).float()
     scores = scores / math.sqrt(hd)
-    qpos = torch.arange(s, device=q.device)[:, None] + q_offset
-    kpos = torch.arange(t, device=q.device)[None, :]
-    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
+    mask = _mask(torch.arange(s, device=q.device) + q_offset,
+                 torch.arange(t, device=q.device), causal, window)
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     return einsum("bhst,bthk->bshk", w, v)
 
 
+# ------------------------------------------------------------------ chunked
+def _attend_chunked(q, k, v, *, causal: bool, window: Optional[int],
+                    q_offset: int = 0, q_chunk: int = Q_CHUNK,
+                    kv_chunk: int = KV_CHUNK):
+    """Online softmax over kv chunks inside a loop over q chunks (JAX's two
+    `lax.scan`s). Never forms (S, T). With a sliding window (causal, S = T,
+    no offset) each q chunk reads only the ``band`` + ``q_chunk`` keys it
+    can see, a slice of K/V padded in front by ``band`` keys whose
+    positions are negative and masked.
+
+    The casts are the reference's: the banded route casts the softmax
+    weights to the input dtype before P·V; the unbanded one accumulates
+    P·V in fp32 and casts the normalised output."""
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    n_rep = h // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    q_chunk = min(q_chunk, s)
+    if s % q_chunk:
+        raise ValueError(f"{s} query tokens are not whole chunks of "
+                         f"{q_chunk}")
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    banded = window is not None and causal and t == s and q_offset == 0
+    if banded:
+        band = ((window + q_chunk - 1) // kv_chunk + 1) * kv_chunk
+        kp = torch.nn.functional.pad(k, (0, 0, 0, 0, band, 0))
+        vp = torch.nn.functional.pad(v, (0, 0, 0, 0, band, 0))
+    n_kv = t // kv_chunk if t % kv_chunk == 0 else 1
+    kv_len = t // n_kv
+    chunks = []
+    for qi in range(s // q_chunk):
+        q0 = qi * q_chunk
+        qc = q[:, q0:q0 + q_chunk]
+        qpos = q0 + torch.arange(q_chunk, device=dev) + q_offset
+        if banded:
+            # keys visible to this q chunk: [q0 - band + 1, q0 + q_chunk),
+            # at [q0, q0 + band + q_chunk) of the padded K/V
+            kpos = q0 - band + torch.arange(band + q_chunk, device=dev)
+            chunks.append(_online_block(
+                qc, kp[:, q0:q0 + band + q_chunk],
+                vp[:, q0:q0 + band + q_chunk], qpos, kpos, causal, window,
+                scale))
+            continue
+        m = torch.full((b, h, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, h, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, h, q_chunk, hd), dtype=torch.float32,
+                          device=dev)
+        for kj in range(n_kv):
+            kc = k[:, kj * kv_len:(kj + 1) * kv_len]
+            vc = v[:, kj * kv_len:(kj + 1) * kv_len]
+            kpos = kj * kv_len + torch.arange(kv_len, device=dev)
+            sc = einsum("bshk,bthk->bhst", qc, kc).float() * scale
+            sc = torch.where(_mask(qpos, kpos, causal, window), sc,
+                             torch.full_like(sc, NEG_INF))
+            m_new = torch.maximum(m, sc.amax(-1))
+            p = torch.exp(sc - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + einsum("bhst,bthk->bhsk", p,
+                                                  vc.float())
+            m = m_new
+        o = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+        chunks.append(o.transpose(1, 2))                 # (B,q_chunk,H,hd)
+    return torch.cat(chunks, dim=1)
+
+
+def _mask(qpos, kpos, causal: bool, window: Optional[int]):
+    """(len(qpos), len(kpos)) bool: the keys each query may see."""
+    msk = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                     device=qpos.device)
+    if causal:
+        msk &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        msk &= kpos[None, :] > qpos[:, None] - window
+    return msk
+
+
+def _online_block(qc, kc, vc, qpos, kpos, causal, window, scale):
+    """Single-block softmax attention (the banded sliding-window route);
+    padded keys have kpos < 0 and are masked."""
+    sc = einsum("bshk,bthk->bhst", qc, kc).float() * scale
+    msk = _mask(qpos, kpos, causal, window) & (kpos[None, :] >= 0)
+    sc = torch.where(msk, sc, torch.full_like(sc, NEG_INF))
+    w = torch.softmax(sc, dim=-1)
+    return einsum("bhst,bthk->bshk", w.to(qc.dtype), vc)
+
+
 # ------------------------------------------------------------------ dispatch
 def attend(q, k, v, *, causal=True, window=None, q_offset=0, impl="auto"):
-    if impl in ("auto", "pallas"):
-        if q.device.type == "cpu":
-            return _attend_naive(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset)
+    if impl not in ("auto", "pallas", "naive", "chunked"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if impl in ("auto", "pallas") and q.device.type != "cpu":
         if q_offset:
             raise ValueError("the flash_attention kernel takes no q_offset "
                              f"(got {q_offset}); use impl='naive'")
         return ops.flash_attention(q, k, v, causal=causal, window=window)
-    if impl == "naive":
-        return _attend_naive(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset)
-    if impl == "chunked":
-        raise NotImplementedError("the XLA-style chunked attention waits "
-                                  "(ROADMAP.md, A26)")
-    raise ValueError(f"unknown attention impl {impl!r}")
+    if impl == "auto":
+        impl = "chunked" if q.shape[1] >= CHUNKED_THRESHOLD else "naive"
+    if impl == "chunked" and q.shape[1] >= 2 * Q_CHUNK:
+        return _attend_chunked(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+    return _attend_naive(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset)
 
 
 def apply_attention(cfg, p, x, positions, *, causal=True, window="cfg",

@@ -37,17 +37,24 @@ call's sequence length, so `forward` over S + 1 tokens may drop other
 entries than a prefill over S (a decode step of one token drops none).
 
 Every entry point takes ``device=`` (default "cuda") and raises without
-that device. `loss_fn`, `input_specs`, `abstract_params` and
-`param_axes` are not ported yet (ROADMAP.md, A26).
+that device. ``remat=True`` recomputes each block's activations in the
+backward pass (`torch.utils.checkpoint`, JAX's `jax.checkpoint` around the
+scanned block); the forward's values are the same bits either way.
+`abstract_params` gives the schema's tensors on the ``meta`` device and
+`input_specs` the inputs' shapes. `loss_fn` waits for the training port
+(ROADMAP.md, A16), `param_axes` and the inputs' logical axes for the
+sharding (A18).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks
@@ -55,8 +62,9 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ParamSpec, apply_norm,
                                        count_from_schema, einsum,
                                        embed_schema, embed_tokens,
-                                       init_from_schema, norm_schema,
-                                       stack_layers, torch_dtype, unembed)
+                                       init_from_schema, map_schema,
+                                       norm_schema, stack_layers,
+                                       torch_dtype, unembed)
 
 WHISPER_ENC_FRAMES = 1500     # 30 s of audio at 50 Hz after the conv stub
 VLM_VISION_FRACTION = 8       # 1/8 of the sequence is patch embeddings
@@ -143,6 +151,16 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, *,
     return params
 
 
+def abstract_params(cfg: ArchConfig, dtype=None):
+    """The schema's tensors on the ``meta`` device, in ``dtype`` (default
+    the config's): JAX's `abstract_params` tree (layers stacked on a
+    leading axis, as `model_schema` lays them out), allocating nothing."""
+    dt = torch_dtype(dtype or cfg.dtype)
+    return map_schema(lambda spec: torch.empty(spec.shape, dtype=dt,
+                                               device="meta"),
+                      model_schema(cfg))
+
+
 def param_count(cfg: ArchConfig, experts_only: bool = False) -> int:
     schema = model_schema(cfg)
     if experts_only:
@@ -155,6 +173,24 @@ def param_count(cfg: ArchConfig, experts_only: bool = False) -> int:
 
 
 # ===================================================================== utils
+@contextlib.contextmanager
+def unroll_scans(enable: bool = True):
+    """JAX's switch that fully unrolls the layer scans (for XLA's cost
+    analysis, which counts a scan body once). The port's layer loops are
+    Python loops, which every layer runs through already, so this changes
+    nothing; it is kept so that code written against the reference runs
+    unchanged."""
+    yield
+
+
+def _block(remat: bool, fn, *args):
+    """``fn(*args)``, through `torch.utils.checkpoint` when ``remat``: the
+    same forward, its activations recomputed in the backward pass."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _device_inputs(params, tokens, device) -> Tuple[torch.device,
                                                     torch.Tensor]:
     dev = resolve_device(device)
@@ -233,38 +269,48 @@ def _embed_decoder(cfg: ArchConfig, params, tokens):
 
 # ===================================================================== forward
 def forward(cfg: ArchConfig, params, inputs: Dict[str, Any], *,
-            impl: str = "auto", device="cuda"):
+            impl: str = "auto", remat: bool = False, device="cuda"):
     """Full-sequence forward. Returns (logits (B,S,V), aux_loss): the sum of
     the MoE layers' load-balance losses in fp32, 0.0 for other families. A
-    VLM's logits cover the vision prefix too."""
+    VLM's logits cover the vision prefix too. ``remat`` checkpoints each
+    block (`_block`)."""
     check_family(cfg)
     dev, tokens = _device_inputs(params, inputs["tokens"], device)
     if cfg.family == "audio":
-        return _forward_audio(cfg, params, inputs, tokens, dev, impl=impl)
+        return _forward_audio(cfg, params, inputs, tokens, dev, impl=impl,
+                              remat=remat)
     x = _embed(cfg, params, inputs, tokens, dev)
     b, s, _ = x.shape
     positions = _positions(b, s, dev)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     period = _shared_period(cfg)
+
+    def dense(p_l, h):
+        return blocks.apply_dense_block(cfg, p_l, h, positions, impl=impl)
+
+    def moe(p_l, h):
+        return blocks.apply_moe_block(cfg, p_l, h, positions, impl=impl)
+
+    def ssm(p_l, h):
+        return blocks.apply_ssm_block(cfg, p_l, h)
+
     for i, p_l in enumerate(params["layers"]):
         if period and i % period == 0:
-            x = blocks.apply_dense_block(cfg, params["shared"], x, positions,
-                                         impl=impl)
+            x = _block(remat, dense, params["shared"], x)
         if cfg.family in ("ssm", "hybrid"):
-            x = blocks.apply_ssm_block(cfg, p_l, x)
+            x = _block(remat, ssm, p_l, x)
         elif cfg.family == "moe":
-            x, a_l = blocks.apply_moe_block(cfg, p_l, x, positions,
-                                            impl=impl)
+            x, a_l = _block(remat, moe, p_l, x)
             aux = aux + a_l
         else:
-            x = blocks.apply_dense_block(cfg, p_l, x, positions, impl=impl)
+            x = _block(remat, dense, p_l, x)
     x = apply_norm(cfg, params["lnf"], x)
     logits = unembed(cfg, params["embed"], x)
     return logits, aux
 
 
 def encode_audio(cfg: ArchConfig, params, frames, *, impl: str = "auto",
-                 device="cuda"):
+                 remat: bool = False, device="cuda"):
     """Run the (bidirectional) audio encoder over stub frame embeddings
     (B, S_enc, D) -> (B, S_enc, D)."""
     dev = resolve_device(device)
@@ -273,9 +319,12 @@ def encode_audio(cfg: ArchConfig, params, frames, *, impl: str = "auto",
     enc = frames + sinusoid(s_enc, cfg.d_model, device=dev).to(
         frames.dtype)[None]
     pos_enc = _positions(b, s_enc, dev)
+
+    def enc_block(p_l, h):
+        return blocks.apply_dense_block(cfg, p_l, h, pos_enc, causal=False,
+                                        impl=impl, window=None)
     for p_l in params["enc_layers"]:
-        enc = blocks.apply_dense_block(cfg, p_l, enc, pos_enc, causal=False,
-                                       impl=impl, window=None)
+        enc = _block(remat, enc_block, p_l, enc)
     return apply_norm(cfg, params["enc_lnf"], enc)
 
 
@@ -295,13 +344,19 @@ def fill_cross_caches(cfg: ArchConfig, params, enc):
     return cross
 
 
-def _forward_audio(cfg, params, inputs, tokens, dev, *, impl="auto"):
-    enc = encode_audio(cfg, params, inputs["frames"], impl=impl, device=dev)
+def _forward_audio(cfg, params, inputs, tokens, dev, *, impl="auto",
+                   remat=False):
+    enc = encode_audio(cfg, params, inputs["frames"], impl=impl, remat=remat,
+                       device=dev)
     x = _embed_decoder(cfg, params, tokens)
     b, s, _ = x.shape
     pos_dec = _positions(b, s, dev)
+
+    def dec_block(p_l, h, enc):
+        return blocks.apply_decoder_block(cfg, p_l, h, enc, pos_dec,
+                                          impl=impl)
     for p_l in params["layers"]:
-        x = blocks.apply_decoder_block(cfg, p_l, x, enc, pos_dec, impl=impl)
+        x = _block(remat, dec_block, p_l, x, enc)
     x = apply_norm(cfg, params["lnf"], x)
     return (unembed(cfg, params["embed"], x),
             torch.zeros((), dtype=torch.float32, device=dev))
@@ -474,3 +529,33 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, pos, *,
             x, _ = block(cfg, p_l, x, _layer_view(cache["attn"], i), pos)
     x = apply_norm(cfg, params["lnf"], x)
     return unembed(cfg, params["embed"], x), cache
+
+
+# ===================================================================== inputs
+def input_specs(cfg: ArchConfig, shape: InputShape):
+    """The model's inputs for ``shape`` as tensors on the ``meta`` device:
+    the names, shapes and dtypes of JAX's abstract `input_specs` (tokens
+    int32, embeddings in the config's dtype). The reference also returns
+    their logical axes; those wait for the sharding (ROADMAP.md, A18).
+    Concrete batches of these shapes come from `data.pipeline.make_batch`."""
+    b, s = shape.global_batch, shape.seq_len
+    act = torch_dtype(cfg.dtype)
+
+    def mk(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": mk((b, 1), torch.int32)}
+    if cfg.family == "vlm":
+        s_vis = s // VLM_VISION_FRACTION
+        s = s - s_vis
+        inputs = {"tokens": mk((b, s), torch.int32),
+                  "vision_embeds": mk((b, s_vis, cfg.d_model), act)}
+    elif cfg.family == "audio":
+        inputs = {"frames": mk((b, WHISPER_ENC_FRAMES, cfg.d_model), act),
+                  "tokens": mk((b, s), torch.int32)}
+    else:
+        inputs = {"tokens": mk((b, s), torch.int32)}
+    if shape.kind == "train":
+        inputs["labels"] = mk((b, s), torch.int32)
+    return inputs

@@ -11,10 +11,11 @@ servers.
 cloud-side half of `router.fleet`. `SchedulingCloud.select` rounds one
 tenant's z̃ through it (with `available=` masking quarantined replicas);
 `select_np` keeps the reference's host-side numpy rounding (Algorithm 2 for
-AWC, Algorithm 3 for SUC/AIC). Generation runs through the blocking per-arm
-`dispatch` on the port's `serving.engine.Engine`; the reference's
-continuous-batching bridge (`make_scheduler`) waits for the port of
-`serving/scheduler.py`.
+AWC, Algorithm 3 for SUC/AIC). Generation runs either through the
+blocking per-arm `dispatch` on the port's `serving.engine.Engine` (the
+sequential path) or through `make_scheduler`'s continuous-batching bridge
+(`serving.scheduler`), where many tenants' requests coalesce into shared
+per-replica decode batches.
 """
 from __future__ import annotations
 
@@ -141,12 +142,21 @@ class SchedulingCloud:
         out = self.replicas[arm].engine.generate(prompts, max_new, seed=seed)
         return out, self.realized_cost(arm, prompts, out)
 
-    def make_scheduler(self, **kw):
-        """The reference's continuous-batching bridge over this pool
-        (`serving.scheduler`)."""
-        raise NotImplementedError(
-            "the continuous-batching scheduler (serving/scheduler.py) is "
-            "not ported yet (ROADMAP A14); use dispatch")
+    def make_scheduler(self, *, n_slots: int = 32, chunk: int = 8,
+                       max_out: Optional[int] = None, fault_plan=None,
+                       health=None, tick_budget: Optional[int] = None):
+        """Continuous-batching bridge over this pool: one `ReplicaRunner`
+        per replica, shared by every tenant submitting to this cloud.
+        ``fault_plan`` / ``health`` (`serving.faults`) arm the chaos layer;
+        ``tick_budget`` bounds each drain (None keeps the default)."""
+        from repro_torch.serving.scheduler import (ContinuousScheduler,
+                                                   ReplicaRunner)
+        kw = {} if tick_budget is None else {"tick_budget": tick_budget}
+        return ContinuousScheduler(
+            [ReplicaRunner(r.engine, n_slots=n_slots, chunk=chunk,
+                           max_out=max_out, replica_ix=i,
+                           fault_plan=fault_plan, health=health)
+             for i, r in enumerate(self.replicas)], **kw)
 
 
 def _pad_to_n_np(mask: np.ndarray, z: np.ndarray, n: int) -> np.ndarray:

@@ -10,7 +10,8 @@ tenant at once:
             -> env draws + partial feedback -> Eq.-(6) update.
 
 `simulate_fleet` runs T such rounds in a Python loop on one device; its
-logs come back as numpy arrays. Every draw comes from the tenants' own
+logs come back as numpy arrays. `simulate_fleet_driven` runs the tenants
+through real generation instead (`router.service.FleetService`). Every draw comes from the tenants' own
 `prng` key rows, split as in the reference (`_tenant_step`), so a tenant's
 trajectory does not depend on the size of the fleet.
 """
@@ -213,3 +214,52 @@ def simulate_fleet(pool: Pool, cfg: FleetConfig, *, T: int,
         act = obs = np.zeros((m, 0, pool.k), np.float32)
     return FleetResult(reward=rew, cost=cost, action=act, observed=obs,
                        state=state)
+
+
+def simulate_fleet_driven(pcfgs: Sequence[PolicyConfig], cloud, data, *,
+                          T: int, prompt_len: int = 8, max_new: int = 8,
+                          n_slots: int = 32, chunk: int = 8, seed: int = 0,
+                          **service_kw) -> FleetResult:
+    """Fleet rounds driven by generation: real engines instead of the
+    synthetic feedback path.
+
+    M tenants run through `router.service.FleetService` against a live
+    `SchedulingCloud`: every round each tenant's selected arms become
+    generation requests, the shared continuous-batching scheduler
+    coalesces them into per-replica decode batches, and measured output
+    quality and realized token costs feed the Eq.-(6) updates. ``reward``
+    is the mean observed quality per round (the synthetic path reports the
+    expected set reward: comparable in trend, not in value). ``state``
+    carries the tenants' statistics and their real key rows, on the
+    cloud's device. ``service_kw`` passes through to `FleetService`
+    (``fault_plan=`` / ``health=`` run the fleet under chaos)."""
+    from repro_torch.router.service import FleetService   # avoids a cycle
+    fs = FleetService(list(pcfgs), cloud, data, n_slots=n_slots, chunk=chunk,
+                      seed=seed, prompt_len=prompt_len, max_new=max_new,
+                      **service_kw)
+    m, k = len(fs.tenants), pcfgs[0].k
+    reward = np.zeros((m, T))
+    cost = np.zeros((m, T))
+    action = np.zeros((m, T, k), bool)
+    observed = np.zeros((m, T, k), bool)
+    for t in range(T):
+        for i, log in enumerate(fs.step()):
+            reward[i, t] = log.rewards[log.observed].mean() \
+                if log.observed.any() else 0.0
+            cost[i, t] = log.cost
+            action[i, t] = log.action
+            observed[i, t] = log.observed
+    dev = cloud.device
+    prev_mask = np.asarray(action[:, -1], np.float32) if T > 0 \
+        else np.zeros((m, k), np.float32)       # T = 0: no round to look at
+    locals_ = [s.local.state for s in fs.tenants]
+    state = TenantState(
+        stats={key: torch.cat([st.stats[key] for st in locals_])
+               for key in locals_[0].stats},
+        prev_mask=torch.as_tensor(prev_mask, device=dev),
+        t=torch.cat([st.t for st in locals_]),
+        # the tenants' real key rows: a synthetic continuation from this
+        # state must not collapse onto PRNGKey(0)
+        key=torch.cat([st.key for st in locals_]))
+    return FleetResult(reward=reward, cost=cost, action=action,
+                       observed=observed, state=state)

@@ -12,6 +12,11 @@ the Pallas wrapper needs S % bq == 0), and per-row and scalar decode
 positions, the decode also at head_dim 120 (GQA 4, H2O-Danube's) and 80
 (n_rep 1, Zamba2's shared block). The CUDA kernels are held against these plain
 versions on the card by `tests/test_torch_cuda.py` and `chip_smoke.py`.
+
+`attend`'s chunked route (JAX's `_attend_chunked`, plain PyTorch on every
+device) is held against the reference's at small q / kv chunks, banded and
+unbanded, GQA and an offset query block, at atol 1e-5 in float32 and 2e-2
+in bfloat16; "auto" on a CPU tensor takes it from `CHUNKED_THRESHOLD`.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -124,8 +129,71 @@ def test_attend_on_cpu_takes_the_plain_path():
     close(want, ref.flash_attention(jnp.asarray(q.numpy()),
                                     jnp.asarray(k.numpy()),
                                     jnp.asarray(v.numpy()), causal=True))
-    with pytest.raises(NotImplementedError, match="A26"):
-        attn.attend(q, k, v, impl="chunked")
+    # below 2·Q_CHUNK query tokens "chunked" is naive, as in JAX
+    assert torch.equal(attn.attend(q, k, v, causal=True, impl="chunked"),
+                       want)
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        attn.attend(q, k, v, impl="flash")
+
+
+# (B, S, T, H, KV, hd, causal, window, q_offset, q_chunk, kv_chunk): the
+# banded sliding-window route (causal, S = T, no offset; a band of one or
+# two kv chunks), the unbanded online softmax over several kv chunks (one
+# chunk when T is not a multiple), GQA 1 / 4, an offset query block,
+# non-causal S != T
+CHUNKED = [
+    (2, 64, 64, 4, 1, 16, True, 20, 0, 16, 16),
+    (1, 96, 96, 4, 4, 32, True, 40, 0, 32, 16),
+    (2, 64, 64, 8, 2, 16, True, None, 0, 16, 16),
+    (2, 32, 64, 4, 1, 16, True, None, 32, 16, 16),
+    (2, 32, 64, 4, 2, 16, True, 12, 32, 8, 16),
+    (2, 48, 40, 4, 4, 16, False, None, 0, 16, 8),
+    (1, 48, 50, 4, 2, 16, False, None, 0, 16, 16),
+]
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5),
+                                        ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("b,s,t,h,kv,hd,causal,window,q_offset,q_chunk,"
+                         "kv_chunk", CHUNKED)
+def test_chunked_matches_the_reference(dtype, atol, b, s, t, h, kv, hd,
+                                       causal, window, q_offset, q_chunk,
+                                       kv_chunk):
+    from repro.models import attention as jattn
+    q, k, v = qkv(b, s, t, h, kv, hd, seed=s + t + h)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              q_chunk=q_chunk, kv_chunk=kv_chunk)
+    want = jattn._attend_chunked(*(jnp.asarray(x, dtype) for x in (q, k, v)),
+                                 **kw)
+    tdt = getattr(torch, dtype)
+    got = attn._attend_chunked(*(torch.tensor(x).to(tdt) for x in (q, k, v)),
+                               **kw)
+    assert got.dtype == tdt and got.shape == (b, s, h, hd)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=atol,
+                               rtol=0)
+
+
+def test_auto_on_cpu_takes_chunked_from_the_threshold(monkeypatch):
+    """On a CPU tensor "auto" is naive below CHUNKED_THRESHOLD query tokens
+    and chunked from it, as JAX's `attend` picks (the threshold lowered so
+    the test stays small); "pallas" stays naive."""
+    monkeypatch.setattr(attn, "CHUNKED_THRESHOLD", 64)
+    monkeypatch.setattr(attn, "Q_CHUNK", 16)
+    calls = []
+    chunked = attn._attend_chunked
+    monkeypatch.setattr(attn, "_attend_chunked",
+                        lambda *a, **kw: calls.append(a[0].shape[1])
+                        or chunked(*a, q_chunk=16, kv_chunk=32, **kw))
+    for s in (32, 63, 64, 96):
+        q, k, v = (torch.tensor(x) for x in qkv(1, s, s, 4, 2, 16, seed=s))
+        out = attn.attend(q, k, v, causal=True, window=24)
+        naive = attn._attend_naive(q, k, v, causal=True, window=24)
+        np.testing.assert_allclose(out.numpy(), naive.numpy(), atol=1e-5,
+                                   rtol=0)
+        assert torch.equal(attn.attend(q, k, v, causal=True, window=24,
+                                       impl="pallas"), naive)
+    assert calls == [64, 96]
 
 
 def test_kernel_wrappers_reject_what_they_do_not_take():

@@ -807,3 +807,63 @@ def test_local_server_and_cloud_on_the_card(dev):
                     s.record(int(arm), reward, cost)
         assert np.array_equal(servers[0].mu_hat, servers[1].mu_hat)
         assert servers[0].state.stats["mu_hat"].device.type == "cuda"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_flash_attention_at_a_16_token_prefill_bucket(dev, dtype, b):
+    """A scheduler's prefill bucket of b requests' rows of 16 tokens at
+    StarCoder2-7B's heads: far below the kernel's 128-row tiles."""
+    g = torch.Generator(device=dev).manual_seed(b)
+    q = torch.randn((b, 16, 36, 128), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b, 16, 4, 128), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert (out.float() - want.float()).abs().max().item() <= atol
+
+
+def test_scheduler_ticks_on_the_card_match_the_cpu(dev):
+    """The same requests through a `ReplicaRunner` on the card and on the
+    CPU (reduced StarCoder2, float32, TF32 off, the same weights): after
+    every tick the same slot progress and tokens, logits within 1e-4,
+    and the same completions; the card's ticks launch the kernels the
+    tick log counts."""
+    from repro_torch.serving.scheduler import ReplicaRunner, Request
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("starcoder2-7b").reduced()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    engines = [Engine(cfg, p, max_len=48, temperature=0.7, device=d)
+               for p, d in ((convert.params_to(params, dev), dev),
+                            (params, "cpu"))]
+    runners = [ReplicaRunner(e, n_slots=6, chunk=4) for e in engines]
+    rng = np.random.default_rng(1)
+    for i, (rows, s, mn) in enumerate([(2, 16, 12), (1, 16, 8), (2, 9, 16),
+                                       (3, 16, 6)]):
+        p = rng.integers(2, cfg.vocab, (rows, s))
+        for r in runners:
+            r.submit(Request(tenant=i, arm=0, prompts=p, max_new=mn,
+                             seed=10 + i))
+    done = [[], []]
+    ops.reset_launches()
+    while any(r.busy for r in runners):
+        for r, sink in zip(runners, done):
+            sink.extend(r.step())
+        card, cpu = (r.state for r in runners)
+        for name in ("out", "n_out", "step", "pos", "finished", "active"):
+            assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name))
+        assert (card.last.cpu() - cpu.last).abs().max().item() <= 1e-4
+    assert [c.request.seed for c in done[0]] == \
+        [c.request.seed for c in done[1]]
+    for a, b in zip(*done):
+        np.testing.assert_array_equal(a.result.tokens, b.result.tokens)
+        np.testing.assert_array_equal(a.result.out_lens, b.result.out_lens)
+    log = runners[0].tick_log
+    assert ops.LAUNCHES["flash_attention"] == \
+        cfg.n_layers * sum(t.buckets for t in log)
+    assert ops.LAUNCHES["decode_attention"] == \
+        cfg.n_layers * sum(t.decode_steps for t in log)

@@ -386,7 +386,10 @@ def test_port_loads_no_jax_and_no_reference_module():
             "repro_torch.env.llm_profiles, "
             "repro_torch.kernels.ops, repro_torch.serving.engine, "
             "repro_torch.models.model, repro_torch.configs.base, "
-            "repro_torch.models.ssm, repro_torch.kernels.ssd_scan\n"
+            "repro_torch.models.ssm, repro_torch.kernels.ssd_scan, "
+            "repro_torch.router.service, repro_torch.serving.scheduler, "
+            "repro_torch.serving.faults, repro_torch.data.pipeline, "
+            "repro_torch.configs.shapes\n"
             "from repro_torch.configs.base import list_archs\n"
             "list_archs()\n"
             "repro_torch.env.llm_profiles.zoo_pool()\n"

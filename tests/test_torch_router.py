@@ -11,7 +11,8 @@ pool against the JAX package, on the CPU.
 * `SchedulingCloud.select` (with and without ``available=``), `select_np`
   and `select_batch` give the reference's masks bit for bit;
   `realized_cost` and `dispatch` on the reduced StarCoder2 (JAX's weights)
-  give its tokens, lengths and cost.
+  give its tokens, lengths and cost; `make_scheduler` builds one runner a
+  replica, as the reference's does.
 * `fleet.relaxed_batch` with each engine and step count is
   `relax.solve_batch` on the bounds; `zoo_pool` is the reference's pool.
 """
@@ -177,8 +178,13 @@ def test_cloud_dispatch_and_cost_bit_equal():
         assert np.array_equal(out.tokens, np.asarray(jout.tokens))
         assert np.array_equal(out.out_lens, np.asarray(jout.out_lens))
         assert cost == jcost == pc.realized_cost(arm, prompts, out)
-    with pytest.raises(NotImplementedError, match="A14"):
-        pc.make_scheduler()
+    sched = pc.make_scheduler(n_slots=3, chunk=2, tick_budget=7)
+    jsched = jc.make_scheduler(n_slots=3, chunk=2, tick_budget=7)
+    assert len(sched.runners) == len(jsched.runners) == pool.k
+    assert sched.tick_budget == jsched.tick_budget == 7
+    for i, (r, jr) in enumerate(zip(sched.runners, jsched.runners)):
+        assert r.engine is te and r.replica_ix == jr.replica_ix == i
+        assert (r.n_slots, r.chunk) == (jr.n_slots, jr.chunk) == (3, 2)
     with pytest.raises(ValueError, match="replicas"):
         cloud.SchedulingCloud(pc.pcfg, pc.replicas[:3], device="cpu")
 

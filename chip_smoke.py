@@ -170,6 +170,39 @@ Phases, each of which fails the run on any mismatch:
  24. vlm-consistency  phase 9 for that Qwen2-VL with random patch
                 embeddings: the decode step at `prefill_len` (1,152)
  25. vlm-card-cpu  phase 10 for the reduced Qwen2-VL
+ 26. relax-tail the grid engine's tail lowering (plain torch, no kernel) at
+                the fleet's shape (phase 4's 4,096 mixed tenants after 16
+                rounds), warm and cold Frank-Wolfe: λ brackets and z̃ equal
+                to the same calls on the CPU bit for bit, the unified mixed
+                batch equal to the single-kind rows bit for bit, warm
+                against cold as the reference's own test holds them;
+                printed: ms a solve for each lowering and the launches a
+                solve. Then `LocalServer(lowering="tail")` for 32 rounds on
+                the card beside the same on the CPU (z̃ within 1e-6)
+ 27. train-dense  StarCoder2-7B at full width (bf16) over 8 of its 32
+                layers: 8 AdamW steps on 4 x 2,048 tokens of `SyntheticLM`
+                with remat, `flash_attention` forward through its autograd
+                Function (one launch a layer a forward, again in remat's
+                recompute); every loss finite and the last below the first;
+                at 1 x 256 tokens every leaf's gradient (none None, wq / wk
+                / wv not zero) against the all-plain fp32 one (impl
+                "naive"): fp32 within 1e-3 of each leaf's norm, bf16 within
+                twice the all-plain bf16 gradient's own error plus 1e-2;
+                printed: losses, s/step, tokens/s, peak GB, launches
+                a step and the backward recompute's share of a step's
+                device time (profiler)
+ 28. train-ssm  phase 27 for Mamba2-780M at full width and depth (48
+                layers) on 4 x 1,024 tokens, `ssd_chunk` through its
+                Function (the all-plain gradient with `ops.ssd_chunk`
+                swapped for its plain version)
+ 29. serve-launch  `repro_torch.launch.serve.main` on the card: --kind awc
+                --rounds 30 --pool h2o-danube-3-4b,mamba2-780m,starcoder2-7b
+                --train-first 1 --dispatch continuous --tenants 4
+                --fault-rate 0.2 --fault-seed 7 --crash-on-decode: the
+                trained member's loss falls, the contained crashes equal
+                the injected ones, and the Mamba2 replica behind the
+                scheduler prefills through `ssd_chunk`; printed: mean
+                observed reward, violation, selections and rounds/s
 
 The next-to-last line of output is one JSON object describing every kernel;
 the last is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -178,6 +211,7 @@ the repository beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -239,6 +273,26 @@ AUDIO_ARCH = "whisper-large-v3"  # the audio serving path's model (phase 20)
 VLM_ARCH = "qwen2-vl-72b"        # the VLM serving path's model (phase 23)
 VLM_LAYERS = 20                  # one of four pipeline stages of its 80
 SERVE_MAX_LEN = 4096
+TAIL_ROUNDS = 32                 # LocalServer on the tail lowering (26)
+TRAIN_LAYERS = 8                 # StarCoder2-7B's 32 layers cut to 8 (27)
+TRAIN_STEPS = 8                  # AdamW steps a training phase (27, 28)
+TRAIN_LR = {"train-dense": 1e-4, "train-ssm": 1e-3}   # after 2 warm-up
+TRAIN_DENSE = (4, 2048)          # batch rows, tokens (27)
+TRAIN_SSM = (4, 1024)            # ... (28): a multiple of the chunk
+GRAD_CHECK = (1, 256)            # the gradient check's batch (27, 28)
+# the gradient check: every leaf's ||g − g_plain_fp32|| / ||g_plain_fp32||
+# through the kernels at fp32 within GRAD_RTOL; at bf16 within
+# GRAD_BF16_RATIO times the all-plain bf16 gradient's own error plus
+# GRAD_BF16_SLACK (a bf16 gradient that is a difference of near-equal
+# terms, as wq's and wk's through a near-uniform softmax at random weights
+# are, errs by ~1e-1 in either path)
+GRAD_RTOL = 1e-3
+GRAD_BF16_RATIO, GRAD_BF16_SLACK = 2.0, 1e-2
+SERVE_LAUNCH_ARGS = ["--kind", "awc", "--rounds", "30", "--pool",
+                     "h2o-danube-3-4b,mamba2-780m,starcoder2-7b",
+                     "--train-first", "1", "--dispatch", "continuous",
+                     "--tenants", "4", "--fault-rate", "0.2",
+                     "--fault-seed", "7", "--crash-on-decode"]
 # phase 3's timed attention shapes: the serving paths' (bf16)
 FLASH_TIMED = ("main", "olmoe", "zamba2", "whisper-enc", "whisper-cross",
                "qwen2-vl")
@@ -494,13 +548,19 @@ def awc_plain_bits(b: int, k: int, g: int, threads: int):
 
 
 # ====================================================================== phases
-def phase_card() -> str:
+@functools.lru_cache(maxsize=None)
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi exited {smi.returncode}: {smi.stderr.strip()}")
-    line = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_card() -> str:
+    line = card_line()
     print(line, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
@@ -2031,6 +2091,364 @@ def phase_card_cpu(dev, arch: str, prompt_len: int, tag: str) -> None:
         fail("card and CPU logits differ by more than 1e-4")
 
 
+def host_ms(fn, reps: int = 3) -> float:
+    """Mean wall milliseconds a call of ``fn`` (after one untimed call),
+    the card synchronised around it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_relax_tail(pool, ops, dev, cfg, state) -> None:
+    """Phase 26: the tail lowering on the card against the CPU, at the
+    fleet's shape, from phase 4's fleet ``cfg`` and ``state``."""
+    from repro_torch.core import confidence as cb
+    from repro_torch.core import relax
+    from repro_torch.core import rewards as R
+    from repro_torch.router.local_server import LocalServer
+    cpu = torch.device("cpu")
+    t_row = state.t + 1.0
+    mu = cb.reward_ucb(state.stats, t_row, cfg.delta, cfg.alpha_mu)
+    c = cb.cost_lcb(state.stats, t_row, cfg.delta, cfg.alpha_c)
+    args = (cfg.kind_ix, mu, c, cfg.n, cfg.rho)
+    args_c = tuple(a.to(cpu) for a in args)
+    times, launches, z = {}, {}, {}
+    for name, kw in (("wide", {}),
+                     ("tail-warm", {"lowering": "tail", "fw_warm": True}),
+                     ("tail-cold", {"lowering": "tail", "fw_warm": False})):
+        def solve(kw=kw):
+            return relax.solve_batch(*args, **kw)
+        times[name] = host_ms(solve)
+        ops.reset_launches()
+        z[name] = solve().cpu()
+        torch.cuda.synchronize()
+        launches[name] = {k: v for k, v in ops.LAUNCHES.items() if v}
+        if name != "wide":
+            z_c = relax.solve_batch(*args_c, **kw)
+            if not torch.equal(z[name], z_c):
+                bad = torch.nonzero((z[name] != z_c).any(-1))[:, 0]
+                fail(f"relax-tail: {name} z̃ differs card vs CPU on rows "
+                     f"{bad[:20].tolist()}")
+    # the brackets of the first LP, every kind's weights, card vs CPU
+    awc = cfg.kind_ix == relax.AWC_IX
+    w = torch.where((cfg.kind_ix == relax.AIC_IX)[:, None],
+                    R.log_f32(torch.clamp(mu, R.EPS, 1.0)), mu)
+    w = torch.where(awc[:, None],
+                    R.awc_multilinear_grad(torch.zeros_like(mu), mu), w)
+    rows = relax._rows(w, c, cfg.n, cfg.rho)
+    got = relax._grid_tail_bracket(*rows, ~awc)
+    want = relax._grid_tail_bracket(*(r.to(cpu) for r in rows), ~awc.cpu())
+    for name, a, b in zip(("z", "lo", "hi"), got, want):
+        if not torch.equal(a.cpu(), b):
+            fail(f"relax-tail: bracket {name} differs card vs CPU")
+    # the unified batch's rows against the single-kind solves
+    for k in range(3):
+        sel = torch.nonzero(cfg.kind_ix == k)[:, 0]
+        one = relax.solve_batch(*(a[sel] for a in args), lowering="tail")
+        if not torch.equal(one.cpu(), z["tail-warm"][sel.cpu()]):
+            fail(f"relax-tail: kind {k}'s rows differ from the unified "
+                 "batch")
+    # warm against cold on the AWC rows, as the reference's test holds them
+    sel = awc.cpu()
+    mu_a = mu.cpu()[sel]
+    obj = {n_: R.relaxed_reward("awc", z[n_][sel], mu_a)
+           for n_ in ("tail-warm", "tail-cold")}
+    gap = obj["tail-warm"] - obj["tail-cold"]
+    same = (z["tail-warm"][sel] == z["tail-cold"][sel]).all(-1)
+    dz = (z["tail-warm"] - z["wide"]).abs().max().item()
+    print(f"relax-tail: {cfg.kind_ix.numel()} tenants; ms a solve "
+          + ", ".join(f"{n_} {v:.2f}" for n_, v in times.items())
+          + f"; launches a solve {launches}; warm - cold objective "
+          f"{gap.min().item():.3g} .. {gap.max().item():.3g} (within 2e-6 "
+          f"on {int((gap.abs() <= 2e-6).sum())} of {int(sel.sum())} AWC "
+          f"rows, z̃ equal on {int(same.sum())}); max|tail - wide| "
+          f"{dz:.3g}; brackets and z̃ card = CPU, unified = single-kind "
+          f"[{card_line()}]", flush=True)
+    if launches["tail-warm"] or launches["tail-cold"]:
+        fail("relax-tail: the tail lowering launched a kernel")
+    if gap.min().item() < -2e-4 or same.float().mean().item() < 0.9:
+        fail("relax-tail: warm Frank-Wolfe parts from cold")
+    # the local server on the tail lowering, card beside CPU
+    pcfg = quickstart_config(pool, TAIL_ROUNDS)
+    servers = [LocalServer(pcfg, device=d, lowering="tail")
+               for d in (dev, "cpu")]
+    rng = np.random.default_rng(0)
+    worst, equal = 0.0, 0
+    t0 = time.perf_counter()
+    for _ in range(TAIL_ROUNDS):
+        zg, zc = (s_.relaxed_selection() for s_ in servers)
+        worst = max(worst, float(np.abs(zg - zc).max()))
+        equal += int(np.array_equal(zg, zc))
+        arm = int(rng.choice(pool.k, p=(zc + 1e-3) / (zc + 1e-3).sum()))
+        reward = float(rng.uniform() < pool.mu[arm])
+        cost = float(pool.mean_cost[arm] * rng.uniform(0.5, 1.5))
+        for s_ in servers:
+            s_.record(arm, reward, cost)
+    print(f"relax-tail: LocalServer(lowering='tail') {TAIL_ROUNDS} rounds "
+          f"card and CPU in {time.perf_counter() - t0:.2f} s; z̃ equal on "
+          f"{equal} rounds, max|card - CPU| {worst:.3g} [{card_line()}]",
+          flush=True)
+    if worst > 1e-6:
+        fail(f"relax-tail: the local servers part by {worst}")
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """Each leaf's path ("layers.3.attn.wq"), in `tree_leaves`' order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in leaf_names(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def grad_errors(got, want) -> list:
+    """Each leaf's ||got − want|| / ||want||, in fp32."""
+    from repro_torch.train import optimizer as opt
+    return [(g.float() - w.float()).norm().item()
+            / max(w.float().norm().item(), 1e-30)
+            for g, w in zip(opt.tree_leaves(got), opt.tree_leaves(want))]
+
+
+def check_gradients(ops, tag: str, cfg, params, dev, plain) -> None:
+    """The gradient check of phases 27–28 at GRAD_CHECK: every leaf's
+    gradient through the kernels' Functions against the all-plain one
+    (``plain`` a context for it), fp32 then bf16 against fp32."""
+    import contextlib
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import value_and_grad
+    b, s = GRAD_CHECK
+    toks = SyntheticLM(DataConfig(cfg.vocab, s, b, seed=1)).batch(0)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    p32 = opt.tree_map(lambda p: p.detach().float(), params)
+    grads = {}
+    for name, p_, ctx in (("kernel-fp32", p32, contextlib.nullcontext()),
+                          ("plain-fp32", p32, plain()),
+                          ("kernel-bf16", params, contextlib.nullcontext()),
+                          ("plain-bf16", params, plain())):
+        with ctx:
+            ops.reset_launches()
+            _, _, g = value_and_grad(cfg, p_, batch, impl="naive"
+                                     if name.startswith("plain") else "auto",
+                                     remat=True, device=dev)
+            torch.cuda.synchronize()
+            used = {k: v for k, v in ops.LAUNCHES.items() if v}
+        nones = [i for i, x in enumerate(opt.tree_leaves(g)) if x is None]
+        if nones:
+            fail(f"{tag}: {name}: leaves {nones} have no gradient")
+        if name.startswith("plain") == bool(used):
+            fail(f"{tag}: {name} launched {used}")
+        grads[name] = g
+    for layer in grads["kernel-bf16"]["layers"]:
+        for w in ("wq", "wk", "wv"):
+            if "attn" in layer and not layer["attn"][w].abs().max().item():
+                fail(f"{tag}: a zero gradient for {w}")
+    del p32
+    names = leaf_names(params)
+    ref = grads["plain-fp32"]
+    err = {k: grad_errors(grads[k], ref) for k in ("kernel-fp32",
+                                                   "kernel-bf16",
+                                                   "plain-bf16")}
+    i32 = int(np.argmax(err["kernel-fp32"]))
+    i16 = int(np.argmax(np.asarray(err["kernel-bf16"])
+                        - GRAD_BF16_RATIO * np.asarray(err["plain-bf16"])))
+    print(f"{tag}: gradients at {b} x {s} against the all-plain fp32 ones, "
+          f"||diff|| / ||plain|| a leaf: kernel fp32 worst "
+          f"{err['kernel-fp32'][i32]:.3g} ({names[i32]}; bound "
+          f"{GRAD_RTOL}); kernel bf16 worst "
+          f"{max(err['kernel-bf16']):.3g}, plain bf16 worst "
+          f"{max(err['plain-bf16']):.3g}; the leaf nearest its bound "
+          f"{names[i16]}: kernel bf16 {err['kernel-bf16'][i16]:.3g} against "
+          f"plain bf16 {err['plain-bf16'][i16]:.3g} (bound "
+          f"{GRAD_BF16_RATIO} x plain + {GRAD_BF16_SLACK})", flush=True)
+    if err["kernel-fp32"][i32] > GRAD_RTOL:
+        fail(f"{tag}: the kernels' fp32 gradients part from the plain ones")
+    if any(k > GRAD_BF16_RATIO * p + GRAD_BF16_SLACK
+           for k, p in zip(err["kernel-bf16"], err["plain-bf16"])):
+        fail(f"{tag}: the kernels' bf16 gradients err beyond bf16's own")
+
+
+def backward_share(events, fn_name: str) -> float:
+    """Device ms under the autograd Function's backward nodes (its
+    recompute of the plain version and the gradient), from the profiler's
+    averages."""
+    return sum(getattr(e, "device_time_total", 0) for e in events
+               if e.key == fn_name) / 1e3
+
+
+def plain_attention_context():
+    """The all-plain dense gradient needs no swap: impl "naive"."""
+    import contextlib
+    return contextlib.nullcontext()
+
+
+def plain_ssd_context(ops):
+    """A context factory swapping `ops.ssd_chunk` for its plain version
+    (the all-plain SSM gradient)."""
+    import contextlib
+    from repro_torch.kernels import ssd_scan
+
+    @contextlib.contextmanager
+    def swapped():
+        kernel = ops.ssd_chunk
+        ops.ssd_chunk = ssd_scan.ssd_chunk_plain
+        try:
+            yield
+        finally:
+            ops.ssd_chunk = kernel
+    return swapped
+
+
+def phase_train(ops, dev, arch: str, tag: str, kernel: str, shape,
+                layers: Optional[int], plain) -> dict:
+    """Phases 27–28: TRAIN_STEPS AdamW steps of ``arch`` at full width
+    (bf16, remat) through ``kernel``'s autograd Function; returns the
+    kernel's launches in the timed steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = full_width(arch, dev, tag, layers)
+    b, s = shape
+    data = SyntheticLM(DataConfig(cfg.vocab, s, b, seed=0))
+    ocfg = opt.AdamWConfig(lr=TRAIN_LR[tag], warmup_steps=2,
+                           total_steps=TRAIN_STEPS)
+    ost = opt.init_adamw(ocfg, params)
+    step = make_train_step(cfg, ocfg, impl="auto", remat=True, device=dev)
+    n_kern = cfg.n_layers
+    with torch.no_grad():                 # one forward: a launch a layer
+        toks = data.batch(0)
+        ops.reset_launches()
+        M.forward(cfg, params, {"tokens": toks[:, :-1]}, device=dev)
+        torch.cuda.synchronize()
+        if ops.LAUNCHES[kernel] != n_kern:
+            fail(f"{tag}: a forward launched {ops.LAUNCHES[kernel]} "
+                 f"{kernel}, expected {n_kern}")
+    losses, secs = [], []
+    ops.reset_launches()
+    for i in range(TRAIN_STEPS):
+        toks = data.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, ost, m = step(params, ost, {"tokens": toks[:, :-1],
+                                            "labels": toks[:, 1:]})
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    launches = dict(ops.LAUNCHES)
+    want = {kernel: 2 * n_kern * TRAIN_STEPS}     # forward + remat recompute
+    expect_launches(ops, want, tag)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    spt = float(np.median(secs[1:]))
+    print(f"{tag}: {TRAIN_STEPS} steps of {b} x {s} tokens, losses "
+          f"{[round(x, 4) for x in losses]}; {spt:.3f} s/step (median of "
+          f"steps 2..{TRAIN_STEPS}; first {secs[0]:.3f}), {b * s / spt:,.0f} "
+          f"tokens/s, peak {peak:.2f} GB; {kernel} launches a step "
+          f"{launches[kernel] // TRAIN_STEPS} ({n_kern} a forward, as many "
+          f"again in remat's recompute) [{card_line()}]", flush=True)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"{tag}: losses {losses}")
+    # one more step under the profiler: the Function backward's share
+    toks = data.batch(TRAIN_STEPS)
+    fn_name = {"flash_attention": "FlashAttentionFnBackward",
+               "ssd_chunk": "SSDChunkFnBackward"}[kernel]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, ost, _ = step(params, ost, {"tokens": toks[:, :-1],
+                                            "labels": toks[:, 1:]})
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    avg = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in avg
+               if e.device_type == DeviceType.CUDA) / 1e3
+    back = backward_share(avg, fn_name)
+    print(f"{tag}: traced step: wall {wall:.1f} ms (profiler on), device "
+          f"busy {busy:.1f} ms; {fn_name} (plain recompute + its gradient) "
+          + (f"{back:.1f} ms, {back / busy:.4f} of busy" if back else
+             "not measured (no such node in the trace)")
+          + f" [{card_line()}]", flush=True)
+    del ost, step
+    torch.cuda.empty_cache()
+    check_gradients(ops, tag, cfg, params, dev, plain)
+    del params
+    torch.cuda.empty_cache()
+    return {kernel: launches[kernel]}
+
+
+def phase_serve_launch(ops, dev) -> None:
+    """Phase 29: the serving launcher on the card."""
+    from repro_torch.launch import serve
+    from repro_torch.serving.faults import EngineCrash
+    from repro_torch.serving.scheduler import ReplicaRunner
+    losses, pool, injected = [], [], [0]
+    make, build = serve.make_train_step, serve.build_pool
+    check = ReplicaRunner._maybe_injected_crash
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(*b):
+            out = step(*b)
+            losses.append(float(out[2]["loss"]))
+            return out
+        return run
+
+    def building(*a, **kw):
+        pool.extend(build(*a, **kw))
+        return pool
+
+    def counted(self):
+        try:
+            check(self)
+        except EngineCrash:
+            injected[0] += 1
+            raise
+    serve.make_train_step, serve.build_pool = recording, building
+    ReplicaRunner._maybe_injected_crash = counted
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        s = serve.main(SERVE_LAUNCH_ARGS, device=dev)
+    finally:
+        serve.make_train_step, serve.build_pool = make, build
+        ReplicaRunner._maybe_injected_crash = check
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    crashes = sum(st["crashes"] for st in s["replica_stats"])
+    families = [r.engine.cfg.family for r in pool]
+    print(f"serve-launch: {' '.join(SERVE_LAUNCH_ARGS)}: {secs:.1f} s in "
+          f"all; trained losses {losses[0]:.4f} -> {losses[-1]:.4f} over "
+          f"{len(losses)} steps; mean observed reward "
+          f"{s['mean_observed_reward']:.4f}, violation {s['violation']:.4f}, "
+          f"selections {s['selections']}, {s['rounds_per_s']:.2f} rounds/s; "
+          f"crashes {crashes} contained, {injected[0]} injected; "
+          f"{s['failed']} failed observations of tenant 0; replicas "
+          f"{families}; launches {dict(ops.LAUNCHES)} [{card_line()}]",
+          flush=True)
+    if not losses or not losses[-1] < losses[0]:
+        fail(f"serve-launch: the trained member's loss went {losses}")
+    if crashes != injected[0]:
+        fail(f"serve-launch: {crashes} crashes contained, {injected[0]} "
+             "injected")
+    if s["rounds"] != 30 or not np.isfinite(s["mean_cost"]):
+        fail(f"serve-launch: summary {s}")
+    if "ssm" not in families or not ops.LAUNCHES["ssd_chunk"]:
+        fail("serve-launch: the SSM replica served nothing")
+    del pool
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device; chip_smoke.py runs on a GPU only",
@@ -2052,7 +2470,9 @@ def main() -> None:
     measured.update(phase_attention_kernels(ops, dev))
     measured.update(phase_ssd_kernel(ops, dev))
     pool = paper_pool("sciq")
-    cfg, state = phase_decision(pool, dev, TENANTS, DECISION_ROUNDS)
+    fleet_cfg, fleet_state = phase_decision(pool, dev, TENANTS,
+                                            DECISION_ROUNDS)
+    cfg, state = fleet_cfg, fleet_state
     launches = phase_fleet(pool, ops, dev, TENANTS, ROUNDS)
     if min(launches.values()) == 0:
         fail(f"a kernel of the main path never launched: {launches}")
@@ -2133,6 +2553,12 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
     phase_card_cpu(dev, VLM_ARCH, 200, "vlm-card-cpu")
+    phase_relax_tail(pool, ops, dev, fleet_cfg, fleet_state)
+    phase_train(ops, dev, SERVE_ARCH, "train-dense", "flash_attention",
+                TRAIN_DENSE, TRAIN_LAYERS, plain_attention_context)
+    phase_train(ops, dev, SSM_ARCH, "train-ssm", "ssd_chunk", TRAIN_SSM, None,
+                plain_ssd_context(ops))
+    phase_serve_launch(ops, dev)
 
     kernels = []
     for name, mod in ops.KERNELS.items():

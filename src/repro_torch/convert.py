@@ -6,7 +6,9 @@ These functions take the reference's `FleetConfig`, `TenantState` and
 `numpy.asarray`, so the port imports nothing of the reference — and return
 the port's tensors on a given device. uint32 key rows become int64 rows
 holding the same words (`repro_torch.prng`); `key_rows_to_numpy` turns them
-back. `params_from_jax` carries a model's parameter tree across.
+back. `params_from_jax` carries a model's parameter tree across,
+`tree_from_jax` any tree shaped like one (gradients, moments), and
+`adamw_state_from_jax` an AdamW state.
 """
 from __future__ import annotations
 
@@ -90,17 +92,43 @@ def params_from_jax(cfg, tree, device="cuda"):
     other subtrees as they are: a hybrid model's ``shared`` dense block, a
     VLM's ``vision_proj``, an audio model's ``enc_lnf``."""
     check_family(cfg)
-    dev = resolve_device(device)
+    return tree_from_jax(tree, device)
 
+
+_STACKED = ("layers", "enc_layers")      # subtrees stacked on a layer axis
+
+
+def tree_from_jax(tree, device="cuda"):
+    """A tree shaped like JAX's parameters -> the port's layout on
+    ``device``: each `_STACKED` subtree unstacked along its leading axis
+    into a list of dicts, the rest as it is."""
+    dev = resolve_device(device)
     def across(sub, index=None):
         if isinstance(sub, dict):
             return {k: across(v, index) for k, v in sub.items()}
         return _tensor(sub if index is None else np.asarray(sub)[index], dev)
 
-    n_layers = {"layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers}
-    return {name: ([across(sub, i) for i in range(n_layers[name])]
-                   if name in n_layers else across(sub))
+    def depth(sub):
+        while isinstance(sub, dict):
+            sub = next(iter(sub.values()))
+        return np.shape(sub)[0]
+
+    return {name: ([across(sub, i) for i in range(depth(sub))]
+                   if name in _STACKED else across(sub))
             for name, sub in tree.items()}
+
+
+def adamw_state_from_jax(ostate, device="cuda"):
+    """The JAX package's `train.optimizer.init_adamw` state ({"step", "m",
+    "v", "master"}, each tree shaped as the params) -> the port's
+    `train.optimizer` state on ``device``: step a 0-d int32, the trees
+    unstacked as `params_from_jax` unstacks the params."""
+    dev = resolve_device(device)
+    out = {"step": torch.tensor(int(np.asarray(ostate["step"])),
+                                dtype=torch.int32, device=dev)}
+    out.update({k: tree_from_jax(ostate[k], dev)
+                for k in ("m", "v", "master")})
+    return out
 
 
 def params_to(params, device):

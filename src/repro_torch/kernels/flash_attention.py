@@ -94,6 +94,34 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return torch.einsum("bhst,bthk->bshk", w, v.float()).to(q.dtype)
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """`flash_attention` with a gradient. The forward is ``forward(q, k, v,
+    causal=, window=)``: the CUDA kernel's launch on the card (CPU tests
+    pass the plain version). The backward recomputes
+    `flash_attention_plain` under autograd on the saved q, k and v and
+    returns its gradient: the function whose gradient the reference's
+    training takes (XLA's attention; the TPU kernel has no backward)."""
+
+    @staticmethod
+    def forward(ctx, forward, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return forward(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad[1:4]
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(r)
+                  for x, r in zip(ctx.saved_tensors, need)]
+            out = flash_attention_plain(*xs, causal=ctx.causal,
+                                        window=ctx.window)
+            grads = iter(torch.autograd.grad(
+                out, [x for x, r in zip(xs, need) if r], grad))
+        return (None, *(next(grads) if r else None for r in need), None,
+                None)
+
+
 def check_qkv(name: str, q, k, v,
               head_dims: tuple = BUILT_HEAD_DIMS) -> None:
     """What both attention kernels take: contiguous, 16-byte aligned 4-d q,

@@ -13,6 +13,15 @@ name carries a hash of its source, so an edited source is rebuilt.
 `LAUNCHES` counts, per kernel, the launches made through `topn_lp`,
 `awc_fw`, `flash_attention`, `decode_attention` and `ssd_chunk`;
 `reset_launches` sets them to 0.
+
+Gradients: a kernel writes into a tensor of its own, which autograd cannot
+see through. `flash_attention` and `ssd_chunk`, which training runs, launch
+through an autograd Function (`FlashAttentionFn`, `SSDChunkFn`) whose
+backward recomputes the plain version and differentiates it; that
+recompute launches nothing and counts nothing. `topn_lp`, `awc_fw` and
+`decode_attention` have no gradient in the reference: on CUDA they raise
+when grad mode is on and an input requires grad, rather than return a
+result that silently drops it.
 """
 from __future__ import annotations
 
@@ -121,11 +130,22 @@ def _cuda_ready(t, name: str) -> None:
                            "CUDA device is available")
 
 
+def _no_grad(name: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through kernel ``name``,
+    which has none."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no gradient: its kernel's output "
+                           "would drop the gradient of an input that "
+                           "requires grad (run it under torch.no_grad(), or "
+                           "detach the inputs)")
+
+
 def topn_lp(score, cost, n, *, equality: bool = True):
     """Top-n-by-score cost reduction: score/cost (B, K), n (B,) -> (B,)."""
     if score.device.type == "cpu":
         return _topn.topn_lp_plain(score, cost, n, equality=equality)
     _cuda_ready(score, "topn_lp")
+    _no_grad("topn_lp", score, cost)
     out = _topn.topn_lp_cuda(library("topn_lp"), score, cost, n,
                              equality=equality)
     if out.numel():                  # an empty batch launches nothing
@@ -139,6 +159,7 @@ def awc_fw(z, mu, cost, lams, n):
     if z.device.type == "cpu":
         return _awc.awc_fw_plain(z, mu, cost, lams, n)
     _cuda_ready(z, "awc_fw")
+    _no_grad("awc_fw", z, mu, cost, lams)
     g, costs = _awc.awc_fw_cuda(library("awc_fw"), z, mu, cost, lams, n)
     if costs.numel():                # an empty batch launches nothing
         LAUNCHES["awc_fw"] += 1
@@ -152,6 +173,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return _fa.flash_attention_plain(q, k, v, causal=causal,
                                          window=window)
     _cuda_ready(q, "flash_attention")
+    return _fa.FlashAttentionFn.apply(_flash_launch, q, k, v, causal, window)
+
+
+def _flash_launch(q, k, v, *, causal: bool, window: Optional[int]):
     out = _fa.flash_attention_cuda(library("flash_attention"), q, k, v,
                                    causal=causal, window=window)
     if out.numel():                  # an empty batch launches nothing
@@ -165,6 +190,7 @@ def decode_attention(q, k, v, pos):
     if q.device.type == "cpu":
         return _dec.decode_attention_plain(q, k, v, pos)
     _cuda_ready(q, "decode_attention")
+    _no_grad("decode_attention", q, k, v)
     out = _dec.decode_attention_cuda(library("decode_attention"), q, k, v,
                                      pos)
     if out.numel():                  # an empty batch launches nothing
@@ -178,6 +204,10 @@ def ssd_chunk(xd, acum, bm, cm):
     if xd.device.type == "cpu":
         return _ssd.ssd_chunk_plain(xd, acum, bm, cm)
     _cuda_ready(xd, "ssd_chunk")
+    return _ssd.SSDChunkFn.apply(_ssd_launch, xd, acum, bm, cm)
+
+
+def _ssd_launch(xd, acum, bm, cm):
     y, states = _ssd.ssd_chunk_cuda(library("ssd_chunk"), xd, acum, bm, cm)
     if y.numel():                    # an empty batch launches nothing
         LAUNCHES["ssd_chunk"] += 1

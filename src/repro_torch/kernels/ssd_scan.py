@@ -84,13 +84,44 @@ def ssd_chunk_plain(xd, acum, bm, cm):
     l = xd.shape[2]
     diff = acum[:, :, :, None, :] - acum[:, :, None, :, :]   # (B,NC,L,L,H)
     causal = torch.ones((l, l), dtype=torch.bool, device=xd.device).tril()
-    lmat = torch.where(causal[None, None, :, :, None], torch.exp(diff),
-                       torch.zeros((), device=xd.device))
+    # -inf above the diagonal before the exp: the same values as selecting
+    # 0 after it, but exp(diff) there can be inf, and its gradient times
+    # the select's 0 would be NaN (the reference's `where` has that NaN)
+    lmat = torch.exp(torch.where(causal[None, None, :, :, None], diff,
+                                 torch.full((), -torch.inf,
+                                            device=xd.device)))
     cb = torch.einsum("bcin,bcjn->bcij", cm, bm)
     y = torch.einsum("bcijh,bcjhp->bcihp", cb[..., None] * lmat, xd)
     dec_out = torch.exp(acum[:, :, -1:, :] - acum)            # (B,NC,L,H)
     states = torch.einsum("bcln,bclhp->bchpn", bm, xd * dec_out[..., None])
     return y, states
+
+
+class SSDChunkFn(torch.autograd.Function):
+    """`ssd_chunk` with a gradient. The forward is ``forward(xd, acum, bm,
+    cm)``: the CUDA kernel's launch on the card (CPU tests pass the plain
+    version). The backward recomputes `ssd_chunk_plain` under autograd on
+    the saved inputs, as they came (bf16 B/C stay bf16: the plain version
+    casts them), and returns its gradients, each in its input's dtype: the
+    function whose gradient the reference's training takes (the pure-XLA
+    `ssd_chunked`; the TPU kernel has no backward)."""
+
+    @staticmethod
+    def forward(ctx, forward, xd, acum, bm, cm):
+        ctx.save_for_backward(xd, acum, bm, cm)
+        return forward(xd, acum, bm, cm)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_states):
+        need = ctx.needs_input_grad[1:5]
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(r)
+                  for x, r in zip(ctx.saved_tensors, need)]
+            outs = ssd_chunk_plain(*xs)
+            grads = iter(torch.autograd.grad(
+                outs, [x for x, r in zip(xs, need) if r],
+                (grad_y, grad_states)))
+        return (None, *(next(grads) if r else None for r in need))
 
 
 def check_inputs(xd, acum, bm, cm) -> None:

@@ -41,9 +41,10 @@ that device. ``remat=True`` recomputes each block's activations in the
 backward pass (`torch.utils.checkpoint`, JAX's `jax.checkpoint` around the
 scanned block); the forward's values are the same bits either way.
 `abstract_params` gives the schema's tensors on the ``meta`` device and
-`input_specs` the inputs' shapes. `loss_fn` waits for the training port
-(ROADMAP.md, A16), `param_axes` and the inputs' logical axes for the
-sharding (A18).
+`input_specs` the inputs' shapes. `loss_fn` is the training loss (the
+masked mean next-token NLL plus AUX_LOSS_WEIGHT times the MoE load-balance
+loss). `param_axes` and the inputs' logical axes wait for the sharding
+(A18).
 """
 from __future__ import annotations
 
@@ -68,6 +69,7 @@ from repro_torch.models.layers import (ParamSpec, apply_norm,
 
 WHISPER_ENC_FRAMES = 1500     # 30 s of audio at 50 Hz after the conv stub
 VLM_VISION_FRACTION = 8       # 1/8 of the sequence is patch embeddings
+AUX_LOSS_WEIGHT = 0.01
 PORTED = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
@@ -438,6 +440,32 @@ def _prefill_audio(cfg, params, inputs, tokens, dev, max_len, *,
              "cross": {k: v.to(cdt) for k, v in cross.items()}}
     x = apply_norm(cfg, params["lnf"], x[:, -1:])
     return unembed(cfg, params["embed"], x)[:, 0], cache
+
+
+# ===================================================================== loss
+def loss_fn(cfg: ArchConfig, params, batch, *, impl: str = "auto",
+            remat: bool = False, device="cuda"):
+    """Training loss: (loss, {"nll", "aux"}). The NLL is the fp32
+    logsumexp of each position's logits minus its gold logit, averaged
+    over ``batch["mask"]`` (all ones when absent; at least 1 in the
+    denominator); a VLM's loss covers its text positions only (the last
+    ``labels.shape[1]``). The loss adds AUX_LOSS_WEIGHT times ``aux``, the
+    MoE layers' load-balance loss (0 for other families)."""
+    logits, aux = forward(cfg, params, batch, impl=impl, remat=remat,
+                          device=device)
+    dev = logits.device
+    labels = _on(batch["labels"], dev).long()
+    if cfg.family == "vlm":
+        logits = logits[:, -labels.shape[1]:]
+    mask = batch.get("mask")
+    mask = (torch.ones(labels.shape, dtype=torch.float32, device=dev)
+            if mask is None else _on(mask, dev).float())
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    loss = nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss + AUX_LOSS_WEIGHT * aux, {"nll": loss, "aux": aux}
 
 
 # ===================================================================== decode

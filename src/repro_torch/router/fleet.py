@@ -109,17 +109,22 @@ def init_tenant_state(m: int, k: int, keys: Optional[torch.Tensor] = None,
 
 # ================================================================= per-tenant
 def relaxed_batch(stats, t, cfg: FleetConfig, engine: Optional[str] = None,
-                  fw_steps: Optional[int] = None):
+                  fw_steps: Optional[int] = None,
+                  lowering: Optional[str] = None,
+                  fw_warm: Optional[bool] = None):
     """Batched §4.1 local-server step: stats (M, K), t (M,) -> z̃ (M, K).
 
     This is what a local-server pod calls per sync round; the cloud side
     then discretizes with `cloud.round_batch`. ``engine`` selects the
-    parametric-LP engine (None: `relax.DEFAULT_ENGINE`), ``fw_steps`` the
-    AWC Frank-Wolfe step count (None: `relax.FW_STEPS`)."""
+    parametric-LP engine (None: `relax.DEFAULT_ENGINE`), ``lowering`` the
+    grid engine's lowering (None: `relax.DEFAULT_LOWERING`, "wide"),
+    ``fw_steps`` the AWC Frank-Wolfe step count (None: `relax.FW_STEPS`)
+    and ``fw_warm`` the tail lowering's warm start (None: `relax.FW_WARM`)."""
     mu_bar = cb.reward_ucb(stats, t, cfg.delta, cfg.alpha_mu)
     c_low = cb.cost_lcb(stats, t, cfg.delta, cfg.alpha_c)
     return relax.solve_batch(cfg.kind_ix, mu_bar, c_low, cfg.n, cfg.rho,
-                             engine=engine, fw_steps=fw_steps)
+                             engine=engine, fw_steps=fw_steps,
+                             lowering=lowering, fw_warm=fw_warm)
 
 
 def _tenant_act(stats, t, key, cfg: FleetConfig, rows=None):

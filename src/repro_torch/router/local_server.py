@@ -7,12 +7,14 @@ scheduling cloud (raw queries and feedback never leave).
 
 It is the M = 1 case of `router.fleet`: its statistics live in a one-row
 `TenantState` on ``device``, and every solve goes through the fleet's
-batched `fleet.relaxed_batch`. Its properties and `relaxed_selection`
-return numpy arrays.
+batched `fleet.relaxed_batch`, on the grid engine's ``lowering`` (None:
+the wide one; "tail" is what the reference's server runs on the CPU). Its
+properties and `relaxed_selection` return numpy arrays.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -34,9 +36,11 @@ class FeedbackRecord:
 class LocalServer:
     """Owns user data + bandit statistics; emits relaxed selections."""
 
-    def __init__(self, pcfg: PolicyConfig, device="cuda"):
+    def __init__(self, pcfg: PolicyConfig, device="cuda",
+                 lowering: Optional[str] = None):
         self.pcfg = pcfg
         self.device = resolve_device(device)
+        self.lowering = lowering
         self._fcfg = fleet.fleet_config([pcfg], device=self.device)
         self.state = fleet.init_tenant_state(1, pcfg.k, device=self.device)
         self.log: list[FeedbackRecord] = []
@@ -73,7 +77,8 @@ class LocalServer:
     def relaxed_selection(self) -> np.ndarray:
         """One §4.1 step: UCB/LCB -> relaxed solve -> fractional z̃ (K,)."""
         self.t = self.t + 1
-        z = fleet.relaxed_batch(self.state.stats, self.state.t, self._fcfg)
+        z = fleet.relaxed_batch(self.state.stats, self.state.t, self._fcfg,
+                                lowering=self.lowering)
         return z[0].cpu().numpy()
 
     def record(self, arm: int, reward: float, cost: float) -> None:

@@ -867,3 +867,63 @@ def test_scheduler_ticks_on_the_card_match_the_cpu(dev):
         cfg.n_layers * sum(t.buckets for t in log)
     assert ops.LAUNCHES["decode_attention"] == \
         cfg.n_layers * sum(t.decode_steps for t in log)
+
+
+def test_kernels_without_a_gradient_raise_under_grad(dev):
+    """decode_attention, topn_lp and awc_fw have no gradient: on the card
+    they raise rather than return an output that drops one; under
+    no_grad, or with inputs that need none, they launch."""
+    q = torch.randn((2, 1, 4, 64), device=dev)
+    kv = torch.randn((2, 16, 2, 64), device=dev)
+    x = torch.rand((4, 9), device=dev)
+    n = torch.full((4,), 3, dtype=torch.int32, device=dev)
+    lams = torch.rand((4, 5), device=dev)
+    calls = {"decode_attention": lambda a: ops.decode_attention(a, kv, kv, 7),
+             "topn_lp": lambda a: ops.topn_lp(a, x, n),
+             "awc_fw": lambda a: ops.awc_fw(a, x, x, lams, n)}
+    for name, call in calls.items():
+        arg = (q if name == "decode_attention" else x).clone()
+        before = ops.LAUNCHES[name]
+        call(arg)
+        with pytest.raises(RuntimeError, match="has no gradient"):
+            call(arg.requires_grad_())
+        with torch.no_grad():
+            call(arg)
+        assert ops.LAUNCHES[name] == before + 2, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_functions_give_the_plain_gradient_on_the_card(dev, dtype):
+    """flash_attention and ssd_chunk under autograd on the card: the
+    forward launches the kernel once, the backward differentiates the plain
+    version (no launch), so the gradients are the plain version's on the
+    kernel's inputs (fp32 exactly; bf16 to a bf16 rounding)."""
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((2, 200, 8, 64), generator=g).to(dev, dtype)
+    k, v = (torch.randn((2, 200, 2, 64), generator=g).to(dev, dtype)
+            for _ in range(2))
+    xs = [t.requires_grad_() for t in (q, k, v)]
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(*xs, causal=True, window=None)
+    cot = torch.randn(out.shape, generator=g).to(dev, dtype)
+    got = torch.autograd.grad(out, xs, cot)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = torch.autograd.grad(fa.flash_attention_plain(*xs), xs, cot)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    xd = torch.randn((2, 2, 64, 4, 16), generator=g).to(dev)
+    acum = torch.cumsum(-torch.rand((2, 2, 64, 4), generator=g),
+                        2).to(dev)
+    bm, cm = (torch.randn((2, 2, 64, 32), generator=g).to(dev, dtype)
+              for _ in range(2))
+    xs = [t.requires_grad_() for t in (xd, acum, bm, cm)]
+    before = ops.LAUNCHES["ssd_chunk"]
+    y, states = ops.ssd_chunk(*xs)
+    cots = [torch.randn(t.shape, generator=g).to(dev) for t in (y, states)]
+    got = torch.autograd.grad((y, states), xs, cots)
+    assert ops.LAUNCHES["ssd_chunk"] == before + 1
+    want = torch.autograd.grad(ssd.ssd_chunk_plain(*xs), xs, cots)
+    for a, b, x in zip(got, want, xs):
+        assert a.dtype == x.dtype
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

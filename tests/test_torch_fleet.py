@@ -389,7 +389,8 @@ def test_port_loads_no_jax_and_no_reference_module():
             "repro_torch.models.ssm, repro_torch.kernels.ssd_scan, "
             "repro_torch.router.service, repro_torch.serving.scheduler, "
             "repro_torch.serving.faults, repro_torch.data.pipeline, "
-            "repro_torch.configs.shapes\n"
+            "repro_torch.configs.shapes, repro_torch.train.optimizer, "
+            "repro_torch.train.train_step, repro_torch.launch.serve\n"
             "from repro_torch.configs.base import list_archs\n"
             "list_archs()\n"
             "repro_torch.env.llm_profiles.zoo_pool()\n"

@@ -203,6 +203,36 @@ Phases, each of which fails the run on any mismatch:
                 the injected ones, and the Mamba2 replica behind the
                 scheduler prefills through `ssd_chunk`; printed: mean
                 observed reward, violation, selections and rounds/s
+ 30. fleet-resume  phase 4's 4,096 mixed tenants run to round 48
+                checkpointing every 16 (`simulate_fleet(ckpt_dir=...)`), the
+                newest checkpoint is deleted (the kill) and the run resumed
+                to 64: it starts at round 32, and rounds 33..64 and the final
+                state are bit-equal to an uninterrupted 64-round run;
+                checkpoint 32 is bit-equal, by name, to the state that run
+                held at round 32; launches gated; printed: save and restore
+                ms, bytes a checkpoint, rounds/s
+ 31. fleet-sharded  the same fleet over 2 ranks sharing the card
+                (`spawn_local`, gloo, host-copy gathers), 32 rounds
+                checkpointing every 16, then checkpoint 32 deleted and the
+                run resumed at 16: actions, observations, costs, stats, keys
+                and t bit-equal to the one-process run (reward within 1e-6);
+                printed: tenant-rounds/s a rank, as a function check
+ 32. train-resume  `repro_torch.launch.train.main` for Mamba2-780M at full
+                width and depth: --steps 4 --batch 4 --seq 1024 --ckpt-every
+                2, then checkpoint 4 deleted and the same command rerun: it
+                restores step 2 and steps 2..3's losses equal the first
+                run's bit for bit; one `ssd_chunk` a layer a step; printed:
+                bytes a checkpoint (bf16 params, fp32 master, m, v), save and
+                restore s
+ 33. moe-ep     OLMoE-1B-7B's MoE layer at its published widths (fp32) on a
+                ("data", "model") mesh of 1 x 2 ranks sharing the card:
+                `apply_moe_ep` at capacity factor 64 within 1e-5 of
+                `apply_moe` on the card, its aux loss the mean of the two
+                sequence slices' losses (the reference's pmean) within 1e-6;
+                printed: ms a call, as a function check
+
+Phases 30-33 write their checkpoints under `tempfile.mkdtemp()` and remove
+them, on failure too.
 
 The next-to-last line of output is one JSON object describing every kernel;
 the last is {"ok": true, "device": {...}}. Without a CUDA device, or without
@@ -214,8 +244,10 @@ import dataclasses
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
@@ -293,6 +325,16 @@ SERVE_LAUNCH_ARGS = ["--kind", "awc", "--rounds", "30", "--pool",
                      "--train-first", "1", "--dispatch", "continuous",
                      "--tenants", "4", "--fault-rate", "0.2",
                      "--fault-seed", "7", "--crash-on-decode"]
+RESUME_T, RESUME_KILL, RESUME_EVERY = 64, 48, 16   # phase 30
+SHARD_RANKS, SHARD_ROUNDS, SHARD_EVERY = 2, 32, 16  # phase 31
+TRAIN_RESUME_ARGS = ["--arch", SSM_ARCH, "--steps", "4", "--batch", "4",
+                     "--seq", "1024", "--ckpt-every", "2", "--log-every",
+                     "1"]                           # phase 32
+MOE_EP_MESH = (1, 2)             # ("data", "model") ranks (phase 33)
+MOE_EP_TOKENS = (2, 64)          # batch rows, tokens of its layer input
+MOE_EP_ATOL = 1e-5               # the reference test's bound
+DIST_LABEL = ("2 ranks on one H100 over gloo (host copies): a function "
+              "check, not a speed figure")
 # phase 3's timed attention shapes: the serving paths' (bf16)
 FLASH_TIMED = ("main", "olmoe", "zamba2", "whisper-enc", "whisper-cross",
                "qwen2-vl")
@@ -2449,6 +2491,343 @@ def phase_serve_launch(ops, dev) -> None:
     torch.cuda.empty_cache()
 
 
+def _fleet_arrays(res) -> dict:
+    """A FleetResult's logs and final state as host arrays, by name."""
+    st = res.state
+    out = {"reward": res.reward, "cost": res.cost, "action": res.action,
+           "observed": res.observed, "prev_mask": st.prev_mask.cpu().numpy(),
+           "t": st.t.cpu().numpy(), "key": st.key.cpu().numpy()}
+    out.update({f"stats/{k}": v.cpu().numpy() for k, v in st.stats.items()})
+    return out
+
+
+def _fleet_diff(tag: str, got: dict, want: dict, t0: int,
+                state: dict) -> None:
+    """Fail unless ``got``'s rounds t0+1.. equal the same rounds of
+    ``want`` (reward within the reference's 1e-6 caveat) and its final state
+    equals ``state``'s, bit for bit."""
+    t1 = t0 + got["action"].shape[1]
+    for name in ("action", "observed", "cost"):
+        if not np.array_equal(got[name], want[name][:, t0:t1]):
+            fail(f"{tag}: {name} differs from the uninterrupted run")
+    if not np.allclose(got["reward"], want["reward"][:, t0:t1], atol=1e-6,
+                       rtol=0):
+        fail(f"{tag}: reward differs from the uninterrupted run by more "
+             "than 1e-6")
+    for name in ("prev_mask", "t", "key",
+                 *(k for k in state if k.startswith("stats/"))):
+        if not np.array_equal(got[name], state[name]):
+            fail(f"{tag}: final {name} differs from the uninterrupted run")
+
+
+def _timed(store: list, fn):
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        store.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def phase_fleet_resume(pool, ops, dev):
+    """Phase 30: kill and resume through checkpoints. Returns the
+    uninterrupted run's arrays, those of its first RESUME_T // 2 rounds and
+    its tenant-rounds/s (for phase 31)."""
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.router import fleet
+    _, _, cfg = mixed_fleet(pool, TENANTS, RESUME_T, dev)
+    t0 = time.perf_counter()
+    full = _fleet_arrays(fleet.simulate_fleet(pool, cfg, T=RESUME_T, seed=0,
+                                              device=dev))
+    single_rate = TENANTS * RESUME_T / (time.perf_counter() - t0)
+    half_res = fleet.simulate_fleet(pool, cfg, T=RESUME_T // 2, seed=0,
+                                    device=dev)
+    half = _fleet_arrays(half_res)
+    saves, restores = [], []
+    save, restore = checkpoint.save, checkpoint.restore
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
+    d = os.path.join(tmp, "ck")
+    try:
+        checkpoint.save = _timed(saves, save)
+        checkpoint.restore = _timed(restores, restore)
+        t0 = time.perf_counter()
+        fleet.simulate_fleet(pool, cfg, T=RESUME_KILL, seed=0, ckpt_dir=d,
+                             ckpt_every=RESUME_EVERY, device=dev)
+        torch.cuda.synchronize()
+        secs_killed = time.perf_counter() - t0
+        steps = sorted(int(x) for x in os.listdir(d) if x.isdigit())
+        if steps != list(range(RESUME_EVERY, RESUME_KILL + 1, RESUME_EVERY)):
+            fail(f"fleet-resume: checkpoints at {steps}")
+        nbytes = _dir_bytes(os.path.join(d, str(RESUME_T // 2)))
+        shutil.rmtree(os.path.join(d, str(RESUME_KILL)))        # the kill
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = fleet.simulate_fleet(pool, cfg, T=RESUME_T, seed=0, ckpt_dir=d,
+                                   ckpt_every=RESUME_EVERY, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: ops.LAUNCHES[k] for k in FLEET_KERNELS}
+        checkpoint.save, checkpoint.restore = save, restore
+        if res.t0 != RESUME_T // 2:
+            fail(f"fleet-resume: resumed at round {res.t0}, expected "
+                 f"{RESUME_T // 2}")
+        _fleet_diff("fleet-resume", _fleet_arrays(res), full, res.t0, full)
+        like = fleet._ckpt_tree(half_res.state)
+        got, _ = checkpoint.restore(d, like, step=RESUME_T // 2)
+        pairs = zip(checkpoint._flatten_with_paths(got),
+                    checkpoint._flatten_with_paths(like))
+        names = []
+        for (path, a), (_, b) in pairs:
+            names.append("/".join(path))
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                fail(f"fleet-resume: checkpoint {RESUME_T // 2}'s "
+                     f"{names[-1]} is not the uninterrupted run's")
+    finally:
+        checkpoint.save, checkpoint.restore = save, restore
+        shutil.rmtree(tmp, ignore_errors=True)
+    rounds = RESUME_T - res.t0
+    want = {"topn_lp": (4 + 3 * 8) * rounds, "awc_fw": 8 * rounds}
+    if launches != want:
+        fail(f"fleet-resume: launches {launches}, expected {want}")
+    print(f"fleet-resume: {TENANTS} mixed tenants killed at round "
+          f"{RESUME_KILL} (checkpoint {RESUME_KILL} deleted), resumed at "
+          f"{res.t0} to {RESUME_T}: rounds {res.t0 + 1}..{RESUME_T} and the "
+          f"final state bit-equal to the uninterrupted run; checkpoint "
+          f"{RESUME_T // 2} bit-equal by name ({', '.join(names)}); "
+          f"{nbytes:,} bytes a checkpoint; save "
+          f"{np.mean(saves) * 1e3:.2f} ms (mean of {len(saves)}), restore "
+          f"{np.mean(restores) * 1e3:.2f} ms; {RESUME_KILL / secs_killed:.2f}"
+          f" rounds/s checkpointing, {rounds / secs:.2f} resumed; launches "
+          f"{launches} [{card_line()}]", flush=True)
+    return full, half, single_rate
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def sharded_fleet_rank(m: int, T: int, every: int, ckpt_dir: str,
+                       device: str) -> dict:
+    """One rank of phase 31 (`spawn_local`): the tenant-sharded fleet on
+    ``device``, T rounds checkpointing every ``every``; then the newest
+    checkpoint deleted and the run resumed."""
+    import torch.distributed as dist
+    from repro_torch.env.llm_profiles import paper_pool
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_fleet_mesh
+    from repro_torch.router import fleet
+    dev = torch.device(device)
+    pool = paper_pool("sciq")
+    _, _, cfg = mixed_fleet(pool, m, RESUME_T, dev)
+    mesh = make_fleet_mesh()
+    out = {"axes": fleet.fleet_mesh_axes(m, mesh)}
+    for tag in ("run", "resumed"):
+        ops.reset_launches()
+        _sync(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = fleet.simulate_fleet(pool, cfg, T=T, seed=0, mesh=mesh,
+                                   ckpt_dir=ckpt_dir, ckpt_every=every,
+                                   device=dev)
+        _sync(dev)
+        out[tag] = {"secs": time.perf_counter() - t0, "t0": res.t0,
+                    "launches": {k: ops.LAUNCHES[k] for k in FLEET_KERNELS},
+                    **_fleet_arrays(res)}
+        dist.barrier()
+        if tag == "run" and dist.get_rank() == 0:
+            shutil.rmtree(os.path.join(ckpt_dir, str(T)))       # the kill
+    return out
+
+
+def phase_fleet_sharded(ops, dev, full: dict, half: dict,
+                        single_rate: float):
+    """Phase 31: the fleet over SHARD_RANKS ranks sharing the card."""
+    from repro_torch.launch.hostdev import spawn_local
+    if dev.type == "cuda":
+        ops.build(list(FLEET_KERNELS))       # built here, not raced by ranks
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-sharded-")
+    try:
+        t0 = time.perf_counter()
+        recs = spawn_local(SHARD_RANKS, sharded_fleet_rank, TENANTS,
+                           SHARD_ROUNDS, SHARD_EVERY,
+                           os.path.join(tmp, "ck"), str(dev), timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: sum(r[tag]["launches"][k] for r in recs
+                       for tag in ("run", "resumed")) for k in FLEET_KERNELS}
+    for rank, rec in enumerate(recs):
+        if rec["axes"] != ("data",):
+            fail(f"fleet-sharded: rank {rank} split the tenants over "
+                 f"{rec['axes']}")
+        _fleet_diff(f"fleet-sharded rank {rank}", rec["run"], full, 0, half)
+        if rec["resumed"]["t0"] != SHARD_ROUNDS - SHARD_EVERY:
+            fail(f"fleet-sharded: rank {rank} resumed at "
+                 f"{rec['resumed']['t0']}")
+        _fleet_diff(f"fleet-sharded rank {rank} resumed", rec["resumed"],
+                    full, SHARD_ROUNDS - SHARD_EVERY, half)
+    if min(launches.values()) == 0:
+        fail(f"fleet-sharded: a fleet kernel never launched: {launches}")
+    rates = [TENANTS * SHARD_ROUNDS / r["run"]["secs"] for r in recs]
+    print(f"fleet-sharded: {TENANTS} mixed tenants over {SHARD_RANKS} ranks "
+          f"(tenant rows split on 'data'), {SHARD_ROUNDS} rounds "
+          f"checkpointing every {SHARD_EVERY}, then checkpoint "
+          f"{SHARD_ROUNDS} deleted and resumed at "
+          f"{SHARD_ROUNDS - SHARD_EVERY}: actions, observations, costs, "
+          f"stats, keys, t bit-equal to the one-process card run (reward "
+          f"within 1e-6); tenant-rounds/s by rank "
+          f"{[round(r, 1) for r in rates]}, one process "
+          f"{single_rate:.1f}; launches (all ranks) {launches}; "
+          f"{wall:.1f} s with the ranks' start [{DIST_LABEL}] "
+          f"[{card_line()}]", flush=True)
+
+
+def phase_train_resume(ops, dev) -> None:
+    """Phase 32: `launch.train.main` killed (its newest checkpoint deleted)
+    and rerun."""
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train
+    torch.cuda.empty_cache()
+    saves, restores = [], []
+    save, restore = checkpoint.save, checkpoint.restore
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    d = os.path.join(tmp, "ck")
+    args = TRAIN_RESUME_ARGS + ["--ckpt-dir", d]
+    steps = int(args[args.index("--steps") + 1])
+    every = int(args[args.index("--ckpt-every") + 1])
+    layers = get_config(SSM_ARCH).n_layers        # one ssd_chunk a layer
+    try:
+        checkpoint.save = _timed(saves, save)
+        checkpoint.restore = _timed(restores, restore)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        first = train.main(args, device=dev)
+        secs = time.perf_counter() - t0
+        expect_launches(ops, {"ssd_chunk": layers * steps}, "train-resume")
+        nbytes = _dir_bytes(os.path.join(d, str(steps)))
+        on_disk = sorted(int(x) for x in os.listdir(d) if x.isdigit())
+        shutil.rmtree(os.path.join(d, str(steps)))             # the kill
+        ops.reset_launches()
+        second = train.main(args, device=dev)
+        expect_launches(ops, {"ssd_chunk": layers * every},
+                        "train-resume rerun")
+    finally:
+        checkpoint.save, checkpoint.restore = save, restore
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"train-resume: {' '.join(TRAIN_RESUME_ARGS)}: losses "
+          f"{first}, after the kill (checkpoint {steps} deleted) "
+          f"{second}; checkpoints on disk {on_disk}, {nbytes:,} bytes each "
+          f"(bf16 params, fp32 master, m, v); save "
+          f"{[round(x, 2) for x in saves]} s, restore "
+          f"{[round(x, 2) for x in restores]} s; first run {secs:.1f} s "
+          f"with its saves; ssd_chunk {layers} launches a step "
+          f"[{card_line()}]",
+          flush=True)
+    if not np.isfinite(first).all() or len(first) != steps:
+        fail(f"train-resume: losses {first}")
+    if second != first[steps - every:]:
+        fail(f"train-resume: steps {steps - every}..{steps - 1} after the "
+             f"restore gave {second}, the first run {first[steps - every:]}")
+
+
+def moe_layer_inputs(cfg, b: int, s: int, seed: int, dev):
+    """One MoE layer's fp32 weights and a (b, s, d_model) input, drawn on
+    the card from ``seed`` (the same on every process)."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import init_from_schema
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = init_from_schema(moe.moe_schema(cfg), gen, dev, "float32")
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    return p, x
+
+
+def moe_ep_rank(cfg, b: int, s: int, seed: int, device: str,
+                reps: int = 3):
+    """One rank of phase 33 (`spawn_local`): `apply_moe_ep` on ``device``
+    over a MOE_EP_MESH ("data", "model") mesh; (y, aux, ms per call)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    p, x = moe_layer_inputs(cfg, b, s, seed, dev)
+    mesh = init_device_mesh("cpu", MOE_EP_MESH,
+                            mesh_dim_names=("data", "model"))
+    times = []
+    with torch.no_grad():
+        y, aux = moe.apply_moe_ep(cfg, p, x, mesh=mesh, batch_axes=("data",))
+        for _ in range(reps):
+            dist.barrier()
+            _sync(dev)
+            t0 = time.perf_counter()
+            moe.apply_moe_ep(cfg, p, x, mesh=mesh, batch_axes=("data",))
+            _sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+    return y.cpu().numpy(), float(aux), times
+
+
+def phase_moe_ep(dev) -> None:
+    """Phase 33: OLMoE's MoE layer, expert-parallel over 2 ranks of the
+    card, against `apply_moe` on the card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.hostdev import spawn_local
+    from repro_torch.models import moe
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), capacity_factor=64.0)
+    b, s = MOE_EP_TOKENS
+    p, x = moe_layer_inputs(cfg, b, s, 0, dev)
+    with torch.no_grad():
+        y_ref, aux_one = moe.apply_moe(cfg, p, x)
+        one_ms = cuda_ms(lambda: moe.apply_moe(cfg, p, x), iters=5)
+        # the EP aux is the mean of each expert-axis rank's loss on its
+        # sequence slice (the reference's pmean)
+        m = MOE_EP_MESH[1]
+        parts = []
+        for i in range(m):
+            _, idx, probs = moe.route(cfg, p, x[:, i * s // m:(i + 1) * s // m])
+            parts.append(moe.load_balance_loss(cfg, probs, idx))
+        aux_want = float(sum(parts) / m)
+    y_ref = y_ref.cpu().numpy()
+    del p, x
+    torch.cuda.empty_cache()
+    recs = spawn_local(m * MOE_EP_MESH[0], moe_ep_rank, cfg, b, s, 0,
+                       str(dev), timeout=600)
+    errs = [float(np.abs(y - y_ref).max()) for y, _, _ in recs]
+    auxes = [aux for _, aux, _ in recs]
+    print(f"moe-ep: {cfg.name}'s MoE layer at published widths (d_model "
+          f"{cfg.d_model}, {cfg.n_experts} experts, top {cfg.top_k}, moe_d_ff "
+          f"{cfg.moe_d_ff}; fp32, TF32 off) on {b} x {s} tokens, "
+          f"capacity factor 64, a {MOE_EP_MESH[0]} x {MOE_EP_MESH[1]} "
+          f"('data', 'model') mesh: max|y_ep - y_apply_moe| by rank {errs} "
+          f"(bound {MOE_EP_ATOL}); aux by rank {auxes}, expected "
+          f"{aux_want} (one device: {float(aux_one)}); ms a call by rank "
+          f"{[[round(t, 2) for t in ts] for _, _, ts in recs]}, apply_moe on "
+          f"one process {one_ms:.2f} [{DIST_LABEL}] [{card_line()}]",
+          flush=True)
+    if max(errs) > MOE_EP_ATOL:
+        fail(f"moe-ep: apply_moe_ep differs from apply_moe by {max(errs)}")
+    if max(abs(a - aux_want) for a in auxes) > 1e-6:
+        fail(f"moe-ep: aux {auxes}, expected {aux_want}")
+
+
+def stamp(t_start: float, phases: str) -> None:
+    """The run's elapsed seconds at the end of ``phases``."""
+    print(f"time: {time.perf_counter() - t_start:.1f} s after phases "
+          f"{phases}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device; chip_smoke.py runs on a GPU only",
@@ -2469,6 +2848,7 @@ def main() -> None:
     measured = phase_kernels(ops, topn, awc, dev)
     measured.update(phase_attention_kernels(ops, dev))
     measured.update(phase_ssd_kernel(ops, dev))
+    stamp(t_start, "1-3")
     pool = paper_pool("sciq")
     fleet_cfg, fleet_state = phase_decision(pool, dev, TENANTS,
                                             DECISION_ROUNDS)
@@ -2488,6 +2868,7 @@ def main() -> None:
     cfg, params = full_width(SERVE_ARCH, dev, "serve")
     phase_driven_fleet(pool, ops, dev, cfg, params)
     phase_chaos(pool, ops, dev, eng, small_cfg)
+    stamp(t_start, "4-7g")
     del eng, small
     serve_launches, params, cfg = phase_serve(ops, dev, SERVE_ARCH, "serve",
                                               SERVE_TRAFFIC,
@@ -2553,12 +2934,19 @@ def main() -> None:
     del params
     torch.cuda.empty_cache()
     phase_card_cpu(dev, VLM_ARCH, 200, "vlm-card-cpu")
+    stamp(t_start, "8-25")
     phase_relax_tail(pool, ops, dev, fleet_cfg, fleet_state)
     phase_train(ops, dev, SERVE_ARCH, "train-dense", "flash_attention",
                 TRAIN_DENSE, TRAIN_LAYERS, plain_attention_context)
     phase_train(ops, dev, SSM_ARCH, "train-ssm", "ssd_chunk", TRAIN_SSM, None,
                 plain_ssd_context(ops))
     phase_serve_launch(ops, dev)
+    stamp(t_start, "26-29")
+    full, half, single_rate = phase_fleet_resume(pool, ops, dev)
+    phase_fleet_sharded(ops, dev, full, half, single_rate)
+    phase_train_resume(ops, dev)
+    phase_moe_ep(dev)
+    stamp(t_start, "30-33")
 
     kernels = []
     for name, mod in ops.KERNELS.items():

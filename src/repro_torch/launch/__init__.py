@@ -1,1 +1,2 @@
-"""Launchers: the serving launcher (`serve.py`)."""
+"""Launchers: serving (`serve.py`), training (`train.py`), meshes and the
+fleet's mesh smoke (`mesh.py`), and local ranks (`hostdev.py`)."""

@@ -43,8 +43,8 @@ scanned block); the forward's values are the same bits either way.
 `abstract_params` gives the schema's tensors on the ``meta`` device and
 `input_specs` the inputs' shapes. `loss_fn` is the training loss (the
 masked mean next-token NLL plus AUX_LOSS_WEIGHT times the MoE load-balance
-loss). `param_axes` and the inputs' logical axes wait for the sharding
-(A18).
+loss). `param_axes` and the inputs' logical axes wait for the parameter
+sharding (A18b).
 """
 from __future__ import annotations
 
@@ -491,7 +491,7 @@ def init_decode_caches(cfg: ArchConfig, batch: int, max_len: int,
     family {"self", "cross"}, the cross cache at ``enc_frames`` slots (JAX's
     WHISPER_ENC_FRAMES; its engine sizes the slot cache from `prefill`'s
     output instead, at its own frame count). JAX also returns the leaves'
-    logical axes; sharding waits (A18), so the port returns the cache
+    logical axes; sharding waits (A18b), so the port returns the cache
     alone."""
     check_family(cfg)
     dev = resolve_device(device)
@@ -564,7 +564,7 @@ def input_specs(cfg: ArchConfig, shape: InputShape):
     """The model's inputs for ``shape`` as tensors on the ``meta`` device:
     the names, shapes and dtypes of JAX's abstract `input_specs` (tokens
     int32, embeddings in the config's dtype). The reference also returns
-    their logical axes; those wait for the sharding (ROADMAP.md, A18).
+    their logical axes; those wait for the sharding (ROADMAP.md, A18b).
     Concrete batches of these shapes come from `data.pipeline.make_batch`."""
     b, s = shape.global_batch, shape.seq_len
     act = torch_dtype(cfg.dtype)

@@ -19,8 +19,13 @@ What JAX leaves to its sort and scatter orders the port fixes explicitly:
   `index_add_`, whose atomic order on the card would change a bf16 sum
   from run to run.
 
-The expert-parallel path (`apply_moe_ep`, a shard_map over a mesh) waits
-for the port's mesh (ROADMAP.md, A18); `apply_moe_auto` is `apply_moe`.
+`apply_moe_ep` is the reference's expert-parallel path over a mesh of
+ranks (`torch.distributed`, a DeviceMesh with named dims). Routing and the
+capacity dispatch stay local to a rank; the only traffic is one
+all_to_all over the expert dim carrying each rank's dispatch buffer, its
+reverse for the combine, and a ZeRO all-gather of the expert weights over
+the batch dims. `apply_moe_auto` takes it under `sharding.use_mesh` exactly
+when the reference does, and `apply_moe` otherwise.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.models.layers import ParamSpec, einsum
 
 
@@ -153,16 +159,169 @@ def _local_dispatch(x_flat, eid, gat, e: int, cap: int):
     return buf[:-1].view(e, cap, d), order, dest, keep
 
 
+# ==================================================================== EP path
+class _Dim:
+    """One mesh dim as the EP path uses it: its process group (None when
+    the dim has one rank, which needs no collective), size and this rank's
+    index along it."""
+
+    def __init__(self, mesh, name: str):
+        self.size = sharding.mesh_sizes(mesh)[name]
+        self.index = sharding.mesh_coords(mesh)[name]
+        self.group = mesh.get_group(name) if self.size > 1 else None
+
+    def _comm(self, x):
+        """Collectives run on the host over gloo (ranks that share a GPU
+        exchange host copies), on the device otherwise."""
+        import torch.distributed as dist
+        host = dist.get_backend(self.group) == "gloo"
+        return x.detach().to("cpu" if host else x.device).contiguous()
+
+    def all_gather(self, x, dim: int):
+        """Tiled all-gather: the ranks' ``x`` concatenated along ``dim`` in
+        index order."""
+        if self.group is None:
+            return x
+        import torch.distributed as dist
+        xs = self._comm(x)
+        parts = [torch.empty_like(xs) for _ in range(self.size)]
+        dist.all_gather(parts, xs, group=self.group)
+        return torch.cat(parts, dim=dim).to(x.device)
+
+    def all_to_all(self, x):
+        """x (size, ...): block j goes to index j; returns (size, ...) whose
+        block j came from index j."""
+        if self.group is None:
+            return x
+        import torch.distributed as dist
+        xs = self._comm(x)
+        out = torch.empty_like(xs)
+        dist.all_to_all_single(out, xs, group=self.group)
+        return out.to(x.device)
+
+    def pmean(self, v):
+        if self.group is None:
+            return v
+        import torch.distributed as dist
+        t = self._comm(v).clone()
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return (t / self.size).to(v.device)
+
+
 def apply_moe_ep(cfg, p, x, *, mesh, batch_axes, expert_axis="model",
                  capacity_factor: Optional[float] = None):
-    """The expert-parallel shard_map path: not ported, the port has no mesh
-    yet."""
-    raise NotImplementedError(
-        "apply_moe_ep: expert parallelism over a mesh is not ported yet "
-        "(ROADMAP.md, A18); apply_moe runs the same function on one device")
+    """Expert-parallel MoE over ``mesh``: call on every rank of its process
+    group. Returns (y, aux_loss), the same on every rank.
+
+    ``p`` and ``x`` (B, S, D) come whole to every rank (the parameters have
+    no sharded placement until ROADMAP A18b); each rank takes its part as
+    the reference's shard_map specs place it: x's batch block over
+    ``batch_axes``, its experts on ``expert_axis`` and its block of the
+    expert hidden dim f over ``batch_axes``. Then, as the reference: each
+    expert-axis peer routes its own S/m sequence slice (when m divides S),
+    with the router gathered over the expert axis; the capacity dispatch is
+    local (``capacity_factor`` over the rank's B·S·K entries); one
+    all_to_all sends each expert block to its owner and one brings the
+    outputs back; the expert weights are all-gathered over the batch axes
+    (f dim); the aux loss is averaged over both, and y is gathered whole.
+    A token's k outputs are summed in ascending expert id, the order of the
+    reference's scatter-add. The collectives carry no gradient: under
+    autograd on a mesh of several ranks this raises (ROADMAP A18b)."""
+    if capacity_factor is None:
+        capacity_factor = cfg.capacity_factor
+    e, k = cfg.n_experts, cfg.top_k
+    sizes = sharding.mesh_sizes(mesh)
+    m_size = sizes[expert_axis]
+    if e % m_size:
+        raise ValueError(f"{e} experts do not split over {m_size} "
+                         f"{expert_axis!r} ranks")
+    e_loc = e // m_size
+    fsdp_axes = [a for a in batch_axes if a in sizes]
+    if torch.is_grad_enabled() and max(
+            [m_size] + [sizes[a] for a in fsdp_axes]) > 1 and (
+            x.requires_grad or any(v.requires_grad for v in p.values())):
+        raise NotImplementedError(
+            "apply_moe_ep under autograd on a mesh of several ranks: its "
+            "collectives carry no gradient yet (ROADMAP A18b)")
+    ex = _Dim(mesh, expert_axis)
+    fsdp = [_Dim(mesh, a) for a in fsdp_axes]
+    n_blk = math.prod(d.size for d in fsdp)
+    blk = 0
+    for d in fsdp:                      # the first batch axis is the major
+        blk = blk * d.size + d.index
+    bsz_all, f_all = x.shape[0], p["wi_gate"].shape[-1]
+    if bsz_all % n_blk or f_all % n_blk:
+        raise ValueError(f"batch {bsz_all} and expert hidden {f_all} must "
+                         f"split over the {n_blk} ranks of {batch_axes}")
+    bl, fl = bsz_all // n_blk, f_all // n_blk
+    es = slice(ex.index * e_loc, (ex.index + 1) * e_loc)
+    fs = slice(blk * fl, (blk + 1) * fl)
+    x_full = x[blk * bl:(blk + 1) * bl]
+    router = p["router"][:, es]
+    wi_g, wi_u, wo = p["wi_gate"][es, :, fs], p["wi_up"][es, :, fs], \
+        p["wo"][es, fs, :]
+
+    b, s_full, d = x_full.shape
+    # x is replicated over the expert axis: each peer routes its own s/m
+    # slice, so each token is routed once (not m times)
+    seq_split = s_full % m_size == 0 and s_full >= m_size
+    s = s_full // m_size if seq_split else s_full
+    x_loc = x_full[:, ex.index * s:(ex.index + 1) * s] if seq_split \
+        else x_full
+    # ---- local routing (router gathered over the expert axis) ----
+    gates, idx, probs = route(cfg, {"router": ex.all_gather(router, 1)},
+                              x_loc)
+    aux = ex.pmean(load_balance_loss(cfg, probs, idx))
+    for dim in fsdp:
+        aux = dim.pmean(aux)
+
+    n = b * s * k
+    cap = max(1, int(math.ceil(n / e * capacity_factor)))
+    x_rep = x_loc.reshape(b * s, d).repeat_interleave(k, dim=0)   # (N, D)
+    eid = idx.reshape(n)
+    gat = gates.reshape(n).to(x_loc.dtype)
+    buf, order, dest, keep = _local_dispatch(x_rep, eid, gat, e, cap)
+
+    # ---- all_to_all: each expert block to its owner ----
+    recv = ex.all_to_all(buf.reshape(m_size, e_loc, cap, d))
+    toks = recv.transpose(0, 1).reshape(e_loc, m_size * cap, d)
+    # ---- ZeRO weight gather over the batch axes (f dim) ----
+    for dim in fsdp:
+        wi_g, wi_u = dim.all_gather(wi_g, 2), dim.all_gather(wi_u, 2)
+        wo = dim.all_gather(wo, 1)
+    h = F.silu(einsum("ecd,edf->ecf", toks, wi_g))
+    h = h * einsum("ecd,edf->ecf", toks, wi_u)
+    y = einsum("ecf,efd->ecd", h, wo)                         # (e_loc,·,d)
+
+    # ---- reverse all_to_all + local combine ----
+    back = ex.all_to_all(y.reshape(e_loc, m_size, cap, d).transpose(0, 1))
+    ybuf = back.reshape(e * cap, d)
+    ye = ybuf[dest] * (gat[order] * keep)[:, None]            # sorted order
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(n, device=order.device))
+    ye = ye[inv].reshape(b * s, k, d)                         # token order
+    perm = torch.sort(eid.reshape(b * s, k), dim=-1).indices
+    ye = ye.gather(1, perm[..., None].expand(-1, -1, d))
+    contrib = torch.zeros((b * s, d), dtype=x_loc.dtype, device=x.device)
+    for j in range(k):                      # ascending expert id
+        contrib = contrib + ye[:, j]
+    contrib = contrib.reshape(b, s, d)
+    if seq_split:       # reassemble the full sequence across the expert axis
+        contrib = ex.all_gather(contrib, 1)
+    for dim in reversed(fsdp):          # the batch blocks, minor axis first
+        contrib = dim.all_gather(contrib, 0)
+    return contrib, aux
 
 
 def apply_moe_auto(cfg, p, x):
-    """JAX takes the EP path when a mesh with a usable expert axis is
-    active; the port has none until A18, so this is `apply_moe`."""
+    """The EP path when a mesh with a usable expert axis is current
+    (`sharding.use_mesh`), as the reference decides; `apply_moe`
+    otherwise."""
+    mesh = sharding.current_mesh()
+    if mesh is not None:
+        sizes = sharding.mesh_sizes(mesh)
+        if "model" in sizes and cfg.n_experts % sizes["model"] == 0 \
+                and cfg.moe_fsdp_dim != "d_model":
+            batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
+            return apply_moe_ep(cfg, p, x, mesh=mesh, batch_axes=batch_axes)
     return apply_moe(cfg, p, x)

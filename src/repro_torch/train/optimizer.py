@@ -10,8 +10,8 @@ the reference's pure functions do.
 The step's scalars (the learning rate and the bias corrections) are
 computed on the host from the step count, each transcendental in float64
 and rounded once to float32, so the card and the CPU use the same bits.
-`abstract_adamw` and `adamw_state_axes` wait for the sharding (ROADMAP
-A18).
+`abstract_adamw` and `adamw_state_axes` wait for the parameter sharding
+(ROADMAP A18b).
 """
 from __future__ import annotations
 

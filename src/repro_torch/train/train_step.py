@@ -6,8 +6,8 @@ autograd Functions (`kernels.ops`): the forward is the kernel, the
 backward differentiates the plain version, recomputed on the saved
 inputs. ``remat=True`` checkpoints each block, so a block's forward (its
 kernels included) runs again in the backward pass. The reference's
-distributed lowering (a mesh and its shardings) waits for ROADMAP A18:
-these steps run on one device.
+distributed lowering (a mesh and its parameter shardings) waits for
+ROADMAP A18b: these steps run on one device.
 """
 from __future__ import annotations
 

@@ -184,12 +184,19 @@ def test_prefill_then_decode_matches_forward(pair):
 
 
 def test_apply_moe_ep_raises_naming_a18():
-    """Expert parallelism waits for the port's mesh (A18)."""
+    """Expert parallelism runs over a mesh of ranks (A18a); what still
+    waits, gradients through its collectives (A18b), raises naming it."""
+    from torch.distributed.device_mesh import DeviceMesh
     from repro_torch.models import moe
     cfg = get_config("olmoe-1b-7b").reduced()
+    p = {k: torch.zeros(s.shape, requires_grad=True)
+         for k, s in moe.moe_schema(cfg).items()}
+    mesh = DeviceMesh("cpu", torch.arange(2).reshape(1, 2),
+                      mesh_dim_names=("data", "model"), _init_backend=False,
+                      _rank=0)
     with pytest.raises(NotImplementedError, match="A18"):
-        moe.apply_moe_ep(cfg, {}, torch.zeros((1, 2, cfg.d_model)),
-                         mesh=None, batch_axes=("data",))
+        moe.apply_moe_ep(cfg, p, torch.zeros((1, 2, cfg.d_model)),
+                         mesh=mesh, batch_axes=("data",))
 
 
 def test_sliding_window_ring_cache_matches_reference():

@@ -229,7 +229,19 @@ Phases, each of which fails the run on any mismatch:
                 `apply_moe_ep` at capacity factor 64 within 1e-5 of
                 `apply_moe` on the card, its aux loss the mean of the two
                 sequence slices' losses (the reference's pmean) within 1e-6;
-                printed: ms a call, as a function check
+                its gradients of (y . w).sum() + aux, summed over the two
+                ranks (each covers its own blocks), within 1e-5 of the
+                largest entry of the same function's on one process
+                (`apply_moe`'s y, the slices' mean aux); printed: ms a call,
+                as a function check
+ 34. train-sharded  phases 27-28's models (StarCoder2-7B at every
+                published width over 8 layers, Mamba2-780M whole) and
+                batches on a one-rank NCCL group's (1, 1) ("data", "model")
+                CUDA mesh, params and AdamW state DTensors placed by
+                `param_axes`: 3 steps each, `flash_attention` /
+                `ssd_chunk` launched 2 x layers a step under `local_map`,
+                losses within 1e-5 of phases 27-28's plain-tensor steps
+                (printed: whether bit-equal, s/step, peak GB)
 
 Phases 30-33 write their checkpoints under `tempfile.mkdtemp()` and remove
 them, on failure too.
@@ -333,6 +345,11 @@ TRAIN_RESUME_ARGS = ["--arch", SSM_ARCH, "--steps", "4", "--batch", "4",
 MOE_EP_MESH = (1, 2)             # ("data", "model") ranks (phase 33)
 MOE_EP_TOKENS = (2, 64)          # batch rows, tokens of its layer input
 MOE_EP_ATOL = 1e-5               # the reference test's bound
+# phase 33's gradients: each leaf's max |diff| within MOE_EP_GRAD_RTOL of
+# its largest reference entry (fp32, TF32 off, sums in another order)
+MOE_EP_GRAD_RTOL = 1e-5
+SHARDED_STEPS = 3                # AdamW steps a model (phase 34)
+TRAIN_LOSS_RTOL = 1e-5           # tests/test_torch_train.py's loss bound
 DIST_LABEL = ("2 ranks on one H100 over gloo (host copies): a function "
               "check, not a speed figure")
 # phase 3's timed attention shapes: the serving paths' (bf16)
@@ -2351,7 +2368,7 @@ def phase_train(ops, dev, arch: str, tag: str, kernel: str, shape,
                 layers: Optional[int], plain) -> dict:
     """Phases 27–28: TRAIN_STEPS AdamW steps of ``arch`` at full width
     (bf16, remat) through ``kernel``'s autograd Function; returns the
-    kernel's launches in the timed steps."""
+    kernel's launches in the timed steps and the steps' losses."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -2425,7 +2442,7 @@ def phase_train(ops, dev, arch: str, tag: str, kernel: str, shape,
     check_gradients(ops, tag, cfg, params, dev, plain)
     del params
     torch.cuda.empty_cache()
-    return {kernel: launches[kernel]}
+    return {kernel: launches[kernel]}, losses
 
 
 def phase_serve_launch(ops, dev) -> None:
@@ -2756,7 +2773,9 @@ def moe_layer_inputs(cfg, b: int, s: int, seed: int, dev):
 def moe_ep_rank(cfg, b: int, s: int, seed: int, device: str,
                 reps: int = 3):
     """One rank of phase 33 (`spawn_local`): `apply_moe_ep` on ``device``
-    over a MOE_EP_MESH ("data", "model") mesh; (y, aux, ms per call)."""
+    over a MOE_EP_MESH ("data", "model") mesh; (y, aux, ms per call, this
+    rank's gradients of (y · w).sum() + aux as x and the weights, on the
+    host)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.models import moe
@@ -2775,7 +2794,36 @@ def moe_ep_rank(cfg, b: int, s: int, seed: int, device: str,
             moe.apply_moe_ep(cfg, p, x, mesh=mesh, batch_axes=("data",))
             _sync(dev)
             times.append((time.perf_counter() - t0) * 1e3)
-    return y.cpu().numpy(), float(aux), times
+    grads = moe_ep_grads(lambda p_, x_: moe.apply_moe_ep(
+        cfg, p_, x_, mesh=mesh, batch_axes=("data",)), p, x, seed)
+    return y.cpu().numpy(), float(aux), times, grads
+
+
+def moe_ep_grads(fn, p, x, seed: int) -> list:
+    """The gradients of (y · w).sum() + aux, (y, aux) = fn(p, x), as x and
+    p's leaves in `moe_schema`'s order, on the host; w drawn from
+    ``seed`` + 1 on x's device."""
+    gen = torch.Generator(device=x.device).manual_seed(seed + 1)
+    w = torch.randn(x.shape, generator=gen, device=x.device)
+    ps = {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+    xs = x.detach().clone().requires_grad_()
+    y, aux = fn(ps, xs)
+    return [g.cpu().numpy() for g in torch.autograd.grad(
+        (y * w).sum() + aux, [xs, *ps.values()])]
+
+
+def moe_ep_function(cfg, p, x, m: int):
+    """The reference's EP function on one process at a no-drop capacity
+    over a 1 x m mesh: `apply_moe`'s y, and the mean of the load-balance
+    losses of the m sequence slices (its pmean)."""
+    from repro_torch.models import moe
+    y, _ = moe.apply_moe(cfg, p, x)
+    s = x.shape[1]
+    parts = []
+    for i in range(m):
+        _, idx, probs = moe.route(cfg, p, x[:, i * s // m:(i + 1) * s // m])
+        parts.append(moe.load_balance_loss(cfg, probs, idx))
+    return y, sum(parts) / m
 
 
 def phase_moe_ep(dev) -> None:
@@ -2788,24 +2836,26 @@ def phase_moe_ep(dev) -> None:
     cfg = dataclasses.replace(get_config(MOE_ARCH), capacity_factor=64.0)
     b, s = MOE_EP_TOKENS
     p, x = moe_layer_inputs(cfg, b, s, 0, dev)
+    m = MOE_EP_MESH[1]
     with torch.no_grad():
         y_ref, aux_one = moe.apply_moe(cfg, p, x)
         one_ms = cuda_ms(lambda: moe.apply_moe(cfg, p, x), iters=5)
         # the EP aux is the mean of each expert-axis rank's loss on its
         # sequence slice (the reference's pmean)
-        m = MOE_EP_MESH[1]
-        parts = []
-        for i in range(m):
-            _, idx, probs = moe.route(cfg, p, x[:, i * s // m:(i + 1) * s // m])
-            parts.append(moe.load_balance_loss(cfg, probs, idx))
-        aux_want = float(sum(parts) / m)
+        aux_want = float(moe_ep_function(cfg, p, x, m)[1])
+    g_ref = moe_ep_grads(lambda p_, x_: moe_ep_function(cfg, p_, x_, m), p,
+                         x, 0)
     y_ref = y_ref.cpu().numpy()
     del p, x
     torch.cuda.empty_cache()
     recs = spawn_local(m * MOE_EP_MESH[0], moe_ep_rank, cfg, b, s, 0,
                        str(dev), timeout=600)
-    errs = [float(np.abs(y - y_ref).max()) for y, _, _ in recs]
-    auxes = [aux for _, aux, _ in recs]
+    errs = [float(np.abs(y - y_ref).max()) for y, _, _, _ in recs]
+    auxes = [aux for _, aux, _, _ in recs]
+    # a rank's gradients cover its own blocks: their sum is the gradient
+    g_errs = [float(np.abs(sum(r[3][i] for r in recs) - g).max()
+                    / max(np.abs(g).max(), 1e-30))
+              for i, g in enumerate(g_ref)]
     print(f"moe-ep: {cfg.name}'s MoE layer at published widths (d_model "
           f"{cfg.d_model}, {cfg.n_experts} experts, top {cfg.top_k}, moe_d_ff "
           f"{cfg.moe_d_ff}; fp32, TF32 off) on {b} x {s} tokens, "
@@ -2813,13 +2863,113 @@ def phase_moe_ep(dev) -> None:
           f"('data', 'model') mesh: max|y_ep - y_apply_moe| by rank {errs} "
           f"(bound {MOE_EP_ATOL}); aux by rank {auxes}, expected "
           f"{aux_want} (one device: {float(aux_one)}); ms a call by rank "
-          f"{[[round(t, 2) for t in ts] for _, _, ts in recs]}, apply_moe on "
-          f"one process {one_ms:.2f} [{DIST_LABEL}] [{card_line()}]",
+          f"{[[round(t, 2) for t in ts] for _, _, ts, _ in recs]}, apply_moe "
+          f"on one process {one_ms:.2f}; gradients of (y . w).sum() + aux "
+          f"summed over the ranks against the same function on one process "
+          f"(apply_moe's y, the slices' mean aux), max|diff| / max|g| for "
+          f"x, router, wi_gate, wi_up, wo {[f'{e:.3g}' for e in g_errs]} "
+          f"(bound {MOE_EP_GRAD_RTOL}) [{DIST_LABEL}] [{card_line()}]",
           flush=True)
     if max(errs) > MOE_EP_ATOL:
         fail(f"moe-ep: apply_moe_ep differs from apply_moe by {max(errs)}")
     if max(abs(a - aux_want) for a in auxes) > 1e-6:
         fail(f"moe-ep: aux {auxes}, expected {aux_want}")
+    if max(g_errs) > MOE_EP_GRAD_RTOL:
+        fail(f"moe-ep: gradients part from one process's: {g_errs}")
+
+
+def one_rank_group(tmp: str) -> None:
+    """A process group of this process alone on NCCL (phase 34), its
+    rendezvous a file under ``tmp``."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(
+        tmp, "rendezvous"), world_size=1, rank=0)
+
+
+def sharded_train(ops, dev, arch: str, tag: str, kernel: str, shape,
+                  layers: Optional[int], plain_losses: list) -> dict:
+    """Phase 34 for one model: ``arch`` at full width (as phases 27–28 build
+    it) on the current one-rank mesh, its params and AdamW state DTensors,
+    SHARDED_STEPS steps of phases 27–28's batches; the losses against
+    those phases' plain-tensor steps from the same weights and batches."""
+    from repro_torch import sharding
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import make_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = full_width(arch, dev, tag, layers)
+    mesh = sharding.current_mesh()
+    params = sharding.distribute_tree(params, M.param_axes(cfg), mesh)
+    b, s = shape
+    data = SyntheticLM(DataConfig(cfg.vocab, s, b, seed=0))
+    ocfg = opt.AdamWConfig(lr=TRAIN_LR[tag.replace("-sharded", "")],
+                           warmup_steps=2, total_steps=TRAIN_STEPS)
+    ost = opt.init_adamw(ocfg, params)
+    step = make_train_step(cfg, ocfg, impl="auto", remat=True, device=dev)
+    losses, secs = [], []
+    ops.reset_launches()
+    for i in range(SHARDED_STEPS):
+        toks = data.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, ost, m = step(params, ost, {"tokens": toks[:, :-1],
+                                            "labels": toks[:, 1:]})
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    launches = dict(ops.LAUNCHES)
+    want = {kernel: 2 * cfg.n_layers * SHARDED_STEPS}
+    placed = all(sharding.is_dtensor(t) for t in opt.tree_leaves(params)) \
+        and all(sharding.is_dtensor(t) for t in opt.tree_leaves(ost["m"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    spt = float(np.median(secs[1:]))
+    ref = plain_losses[:SHARDED_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    print(f"{tag}: {cfg.name} on a 1 x 1 ('data', 'model') CUDA mesh "
+          f"(one-rank NCCL group), params and AdamW state DTensors "
+          f"(param_axes), {SHARDED_STEPS} steps of {b} x {s} tokens: losses "
+          f"{losses}, the plain-tensor steps' {ref} (max rel diff "
+          f"{rel:.3g}, bound {TRAIN_LOSS_RTOL}; bit-equal "
+          f"{losses == ref}); {spt:.3f} s/step (median of steps "
+          f"2..{SHARDED_STEPS}; first {secs[0]:.3f}), {b * s / spt:,.0f} "
+          f"tokens/s, peak {peak:.2f} GB; {kernel} launches a step "
+          f"{launches[kernel] // SHARDED_STEPS} (under local_map) "
+          f"[{card_line()}]", flush=True)
+    expect_launches(ops, want, tag)
+    if not placed:
+        fail(f"{tag}: a param or moment left its mesh")
+    if rel > TRAIN_LOSS_RTOL:
+        fail(f"{tag}: the sharded losses part from the plain ones")
+    del params, ost, step
+    torch.cuda.empty_cache()
+    return {kernel: launches[kernel]}
+
+
+def phase_train_sharded(ops, dev, dense_losses: list,
+                        ssm_losses: list) -> dict:
+    """Phase 34: phases 27–28's models and batches on a one-rank CUDA mesh
+    with DTensor params and state. (Two ranks sharing the card would meet
+    over gloo, which does not run a DTensor step on CUDA tensors:
+    `tools/gloo_cuda_probe.py`; the multi-rank step is held on the CPU.)"""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_cpu_mesh
+    from repro_torch.sharding import use_mesh
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-nccl-")
+    try:
+        one_rank_group(tmp)
+        with use_mesh(make_cpu_mesh()):        # (1, 1) on "cuda" over NCCL
+            launches = sharded_train(ops, dev, SERVE_ARCH,
+                                     "train-dense-sharded", "flash_attention",
+                                     TRAIN_DENSE, TRAIN_LAYERS, dense_losses)
+            launches.update(sharded_train(ops, dev, SSM_ARCH,
+                                          "train-ssm-sharded", "ssd_chunk",
+                                          TRAIN_SSM, None, ssm_losses))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
 
 
 def stamp(t_start: float, phases: str) -> None:
@@ -2936,10 +3086,11 @@ def main() -> None:
     phase_card_cpu(dev, VLM_ARCH, 200, "vlm-card-cpu")
     stamp(t_start, "8-25")
     phase_relax_tail(pool, ops, dev, fleet_cfg, fleet_state)
-    phase_train(ops, dev, SERVE_ARCH, "train-dense", "flash_attention",
-                TRAIN_DENSE, TRAIN_LAYERS, plain_attention_context)
-    phase_train(ops, dev, SSM_ARCH, "train-ssm", "ssd_chunk", TRAIN_SSM, None,
-                plain_ssd_context(ops))
+    _, dense_losses = phase_train(ops, dev, SERVE_ARCH, "train-dense",
+                                  "flash_attention", TRAIN_DENSE,
+                                  TRAIN_LAYERS, plain_attention_context)
+    _, ssm_losses = phase_train(ops, dev, SSM_ARCH, "train-ssm", "ssd_chunk",
+                                TRAIN_SSM, None, plain_ssd_context(ops))
     phase_serve_launch(ops, dev)
     stamp(t_start, "26-29")
     full, half, single_rate = phase_fleet_resume(pool, ops, dev)
@@ -2947,6 +3098,11 @@ def main() -> None:
     phase_train_resume(ops, dev)
     phase_moe_ep(dev)
     stamp(t_start, "30-33")
+    sharded = phase_train_sharded(ops, dev, dense_losses, ssm_losses)
+    for name, n in sharded.items():
+        if n == 0:
+            fail(f"{name} never launched on the sharded training path")
+    stamp(t_start, "34")
 
     kernels = []
     for name, mod in ops.KERNELS.items():

@@ -22,6 +22,19 @@ recompute launches nothing and counts nothing. `topn_lp`, `awc_fw` and
 `decode_attention` have no gradient in the reference: on CUDA they raise
 when grad mode is on and an input requires grad, rather than return a
 result that silently drops it.
+
+DTensors (a model whose parameters are placed on a mesh,
+`sharding.distribute_tree`): `flash_attention` and `ssd_chunk` run under
+`torch.distributed.tensor.experimental.local_map`, each rank calling the
+kernel (on the CPU its plain version) on its own block, placed by the
+reference's logical axes at those calls: q ("batch", "seq", "heads",
+None), k/v ("batch", "seq", "kv_heads", None), the SSD inputs by xh's
+("batch", "seq", "ssm_heads", None). Where q's heads split over a mesh dim
+and the kv heads do not, each rank gets the kv heads its own q heads read
+(q head i reads kv head i // n_rep). An input every rank of such a dim
+reads whole (k/v there, the SSD's B/C) gets a partial gradient there
+(`sharding.grad_placements`). The other kernels raise on a DTensor: none
+is gathered in silence.
 """
 from __future__ import annotations
 
@@ -36,6 +49,7 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.kernels import awc_fw as _awc
 from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
@@ -140,8 +154,17 @@ def _no_grad(name: str, *tensors) -> None:
                            "detach the inputs)")
 
 
+def _no_dtensor(name: str, *tensors) -> None:
+    """Raise if a DTensor reaches kernel ``name``, which has no placement
+    rule."""
+    if any(sharding.is_dtensor(t) for t in tensors):
+        raise TypeError(f"{name} takes no DTensor: only flash_attention and "
+                        "ssd_chunk run on a mesh's shards")
+
+
 def topn_lp(score, cost, n, *, equality: bool = True):
     """Top-n-by-score cost reduction: score/cost (B, K), n (B,) -> (B,)."""
+    _no_dtensor("topn_lp", score, cost, n)
     if score.device.type == "cpu":
         return _topn.topn_lp_plain(score, cost, n, equality=equality)
     _cuda_ready(score, "topn_lp")
@@ -156,6 +179,7 @@ def topn_lp(score, cost, n, *, equality: bool = True):
 def awc_fw(z, mu, cost, lams, n):
     """Fused AWC FW step: z/mu/cost (B, K), lams (B, G), n (B,) ->
     (g (B, K), costs (B, G))."""
+    _no_dtensor("awc_fw", z, mu, cost, lams, n)
     if z.device.type == "cpu":
         return _awc.awc_fw_plain(z, mu, cost, lams, n)
     _cuda_ready(z, "awc_fw")
@@ -169,6 +193,8 @@ def awc_fw(z, mu, cost, lams, n):
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None):
     """Prefill attention: q (B,S,H,hd), k/v (B,T,KV,hd) -> (B,S,H,hd)."""
+    if sharding.is_dtensor(q):
+        return _flash_on_shards(q, k, v, causal=causal, window=window)
     if q.device.type == "cpu":
         return _fa.flash_attention_plain(q, k, v, causal=causal,
                                          window=window)
@@ -187,6 +213,7 @@ def _flash_launch(q, k, v, *, causal: bool, window: Optional[int]):
 def decode_attention(q, k, v, pos):
     """One-token attention against a cache: q (B,1,H,hd), k/v (B,T,KV,hd),
     pos scalar or (B,) -> (B,1,H,hd)."""
+    _no_dtensor("decode_attention", q, k, v, pos)
     if q.device.type == "cpu":
         return _dec.decode_attention_plain(q, k, v, pos)
     _cuda_ready(q, "decode_attention")
@@ -201,6 +228,8 @@ def decode_attention(q, k, v, pos):
 def ssd_chunk(xd, acum, bm, cm):
     """Mamba2 SSD intra-chunk dual form: xd (B,NC,L,H,P), acum (B,NC,L,H),
     bm/cm (B,NC,L,N) -> (y (B,NC,L,H,P), states (B,NC,H,P,N)), fp32."""
+    if sharding.is_dtensor(xd):
+        return _ssd_on_shards(xd, acum, bm, cm)
     if xd.device.type == "cpu":
         return _ssd.ssd_chunk_plain(xd, acum, bm, cm)
     _cuda_ready(xd, "ssd_chunk")
@@ -212,3 +241,76 @@ def _ssd_launch(xd, acum, bm, cm):
     if y.numel():                    # an empty batch launches nothing
         LAUNCHES["ssd_chunk"] += 1
     return y, states
+
+
+# ================================================================ on a mesh
+def _placed(x, logical) -> tuple:
+    """The placements of ``x``'s shape by its logical axes on its mesh."""
+    mesh = x.device_mesh
+    return sharding.placements(sharding.spec_for(tuple(x.shape), logical,
+                                                 mesh), mesh)
+
+
+def _split_index(mesh, pl, dim: int) -> int:
+    """This rank's block index along tensor dim ``dim`` under placements
+    ``pl`` (the mesh dims that split it, the first the major)."""
+    idx = 0
+    for i, p in enumerate(pl):
+        if p.is_shard(dim):
+            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    return idx
+
+
+def kv_heads_of(block: int, h_loc: int, n_rep: int):
+    """The kv heads that q heads block*h_loc .. block*h_loc + h_loc - 1
+    read (q head i reads kv head i // n_rep): a slice where they form
+    whole groups of one kv head or whole kv heads, else one kv head a q
+    head (an index list)."""
+    first = block * h_loc // n_rep
+    last = (block * h_loc + h_loc - 1) // n_rep
+    if h_loc % n_rep == 0 or n_rep % h_loc == 0:
+        return slice(first, last + 1)
+    return [(block * h_loc + i) // n_rep for i in range(h_loc)]
+
+
+def _flash_on_shards(q, k, v, *, causal: bool, window: Optional[int]):
+    """`flash_attention` of DTensors: each rank's q heads against the kv
+    heads they read, under `local_map`."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    pq = _placed(q, ("batch", "seq", "heads", None))
+    pk = _placed(k, ("batch", "seq", "kv_heads", None))
+    n_rep = q.shape[2] // k.shape[2]
+    gqa_split = any(a.is_shard(2) and not b.is_shard(2)
+                    for a, b in zip(pq, pk))
+    block = _split_index(mesh, pq, 2)
+
+    def local(ql, kl, vl):
+        if gqa_split:
+            heads = kv_heads_of(block, ql.shape[2], n_rep)
+            kl, vl = kl[:, :, heads], vl[:, :, heads]
+        return flash_attention(ql, kl, vl, causal=causal, window=window)
+    gk = sharding.grad_placements(pk, pq)
+    return local_map(local, out_placements=list(pq),
+                     in_placements=(pq, pk, pk),
+                     in_grad_placements=(pq, gk, gk), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
+def _ssd_on_shards(xd, acum, bm, cm):
+    """`ssd_chunk` of DTensors: each rank's batch block and heads, under
+    `local_map` (B/C shared by the heads, whole on every head block)."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xd.device_mesh
+    px = _placed(xd, ("batch", None, None, "ssm_heads", None))
+    pa = _placed(acum, ("batch", None, None, "ssm_heads"))
+    pb = _placed(bm, ("batch", None, None, None))
+    b, nc, _, h, p = xd.shape
+    ps = sharding.placements(sharding.spec_for(
+        (b, nc, h, p, bm.shape[-1]), ("batch", None, "ssm_heads", None, None),
+        mesh), mesh)
+    gb = sharding.grad_placements(pb, px)
+    return local_map(ssd_chunk, out_placements=(px, ps),
+                     in_placements=(px, pa, pb, pb),
+                     in_grad_placements=(px, pa, gb, gb), device_mesh=mesh,
+                     redistribute_inputs=True)(xd, acum, bm, cm)

@@ -17,8 +17,9 @@ one-device run; the command exits non-zero unless they agree:
       [--device cuda|cpu]
 
 It runs on the card unless ``--device cpu`` is given. The production
-meshes (`make_production_mesh`) come with the parameter sharding and the
-dry run (ROADMAP A18b).
+meshes (`make_production_mesh`) are the reference's: 16 × 16 ("data",
+"model") and 2 × 16 × 16 ("pod", "data", "model"), over a process group of
+256 or 512 ranks (`launch.train --mesh pod256|pod512`).
 """
 from __future__ import annotations
 
@@ -48,6 +49,15 @@ def _mesh(shape: Sequence[int], names: Sequence[str]):
                          f"{world}")
     kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return DeviceMesh(kind, ranks, mesh_dim_names=tuple(names))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh over the process group's ranks:
+    (16, 16) ("data", "model"), or (2, 16, 16) ("pod", "data", "model")
+    with ``multi_pod``. Any other group size raises (`_mesh`)."""
+    if multi_pod:
+        return _mesh((2, 16, 16), ("pod", "data", "model"))
+    return _mesh((16, 16), ("data", "model"))
 
 
 def make_cpu_mesh():

@@ -1,13 +1,18 @@
-"""Training launcher (port of `repro/launch/train.py`): its one-device path.
+"""Training launcher (port of `repro/launch/train.py`).
 
 ``--mesh cpu`` (the default), the reference's degenerate 1 × 1 mesh, runs
 on ``device`` under that mesh (so an MoE layer takes the expert-parallel
-path over one rank, as in the reference). ``--mesh pod256|pod512`` needs
-the parameter sharding, which is not ported yet (ROADMAP A18b), and
-raises. ``--smoke`` trains the config's reduced form. With ``--ckpt-dir``
-the run checkpoints (params, optimizer state) every ``--ckpt-every`` steps
-through `ckpt.checkpoint` (the step is the checkpoint's), and a rerun with
-the same flags resumes from the newest checkpoint.
+path over one rank, as in the reference). ``--mesh pod256|pod512`` builds
+the production mesh (`launch.mesh.make_production_mesh`) over the current
+process group, which must have 256 or 512 ranks (else it raises): call
+`main` on every rank (each with its own ``device``); every rank draws the
+same weights from seed 0, places them and the AdamW state on the mesh by
+their logical axes (`sharding.distribute_tree`) and runs the sharded step;
+``--ckpt-dir`` is one-device only (it raises on a production mesh).
+``--smoke`` trains the config's reduced form. With ``--ckpt-dir`` the run
+checkpoints (params, optimizer state) every ``--ckpt-every`` steps through
+`ckpt.checkpoint` (the step is the checkpoint's), and a rerun with the
+same flags resumes from the newest checkpoint.
 
     python -m repro_torch.launch.train --arch mamba2-780m --smoke \\
         --steps 50 --batch 8 --seq 128
@@ -25,7 +30,7 @@ from repro_torch.data.pipeline import make_batch
 from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import model as M
-from repro_torch.sharding import use_mesh
+from repro_torch.sharding import distribute_tree, use_mesh
 from repro_torch.train import optimizer as opt
 from repro_torch.train.train_step import make_train_step
 
@@ -51,16 +56,22 @@ def main(argv=None, *, device="cuda"):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
-    if args.mesh != "cpu":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the production meshes need the parameter "
-            "sharding, which is not ported yet (ROADMAP A18b)")
-    mesh = mesh_mod.make_cpu_mesh()
+    if args.mesh == "cpu":
+        mesh = mesh_mod.make_cpu_mesh()
+    else:
+        mesh = mesh_mod.make_production_mesh(
+            multi_pod=(args.mesh == "pod512"))
+        if args.ckpt_dir:
+            raise NotImplementedError(
+                f"--ckpt-dir on --mesh {args.mesh}: checkpoints of sharded "
+                "params are not written")
 
     ocfg = opt.AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
                            total_steps=args.steps)
     with use_mesh(mesh):
         params = M.init_params(cfg, 0, device=dev)
+        if args.mesh != "cpu":
+            params = distribute_tree(params, M.param_axes(cfg), mesh)
         ostate = opt.init_adamw(ocfg, params)
         step_fn = make_train_step(cfg, ocfg, remat=False, device=dev)
 

@@ -6,7 +6,10 @@ Parameters are plain dicts of tensors with the JAX leaf names (`wq`, `wk`,
 implementation (``impl``):
 
   auto, pallas — on a CUDA tensor the hand-written `flash_attention`
-                 kernel (`kernels.ops`), and nothing else. On a CPU tensor
+                 kernel (`kernels.ops`), and nothing else; on a DTensor
+                 `ops.flash_attention` too, on either device (each rank
+                 runs the kernel, or on the CPU its plain version, on its
+                 own heads). On a CPU tensor
                  "auto" picks as JAX does: `_attend_naive` below
                  ``CHUNKED_THRESHOLD`` query tokens, chunked from there;
                  "pallas" takes `_attend_naive`. "pallas" keeps the JAX
@@ -47,7 +50,8 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import repeat_kv as _repeat_kv
 from repro_torch.models import rope as rope_mod
-from repro_torch.models.layers import ParamSpec, einsum
+from repro_torch.models.layers import ParamSpec, einsum, pad_front
+from repro_torch.sharding import is_dtensor, replicate_like, shard
 
 NEG_INF = -1e30
 CHUNKED_THRESHOLD = 2048
@@ -101,7 +105,8 @@ def _attend_naive(q, k, v, *, causal: bool, window: Optional[int],
     scores = scores / math.sqrt(hd)
     mask = _mask(torch.arange(s, device=q.device) + q_offset,
                  torch.arange(t, device=q.device), causal, window)
-    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    scores = torch.where(replicate_like(mask, scores), scores,
+                         torch.full_like(scores, NEG_INF))
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     return einsum("bhst,bthk->bshk", w, v)
 
@@ -133,8 +138,7 @@ def _attend_chunked(q, k, v, *, causal: bool, window: Optional[int],
     banded = window is not None and causal and t == s and q_offset == 0
     if banded:
         band = ((window + q_chunk - 1) // kv_chunk + 1) * kv_chunk
-        kp = torch.nn.functional.pad(k, (0, 0, 0, 0, band, 0))
-        vp = torch.nn.functional.pad(v, (0, 0, 0, 0, band, 0))
+        kp, vp = pad_front(k, band), pad_front(v, band)
     n_kv = t // kv_chunk if t % kv_chunk == 0 else 1
     kv_len = t // n_kv
     chunks = []
@@ -151,17 +155,17 @@ def _attend_chunked(q, k, v, *, causal: bool, window: Optional[int],
                 vp[:, q0:q0 + band + q_chunk], qpos, kpos, causal, window,
                 scale))
             continue
-        m = torch.full((b, h, q_chunk), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((b, h, q_chunk), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, h, q_chunk, hd), dtype=torch.float32,
-                          device=dev)
+        m = torch.full_like(qc[..., 0].transpose(1, 2), NEG_INF,
+                            dtype=torch.float32)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qc.transpose(1, 2), dtype=torch.float32)
         for kj in range(n_kv):
             kc = k[:, kj * kv_len:(kj + 1) * kv_len]
             vc = v[:, kj * kv_len:(kj + 1) * kv_len]
             kpos = kj * kv_len + torch.arange(kv_len, device=dev)
             sc = einsum("bshk,bthk->bhst", qc, kc).float() * scale
-            sc = torch.where(_mask(qpos, kpos, causal, window), sc,
+            sc = torch.where(replicate_like(_mask(qpos, kpos, causal,
+                                                  window), sc), sc,
                              torch.full_like(sc, NEG_INF))
             m_new = torch.maximum(m, sc.amax(-1))
             p = torch.exp(sc - m_new[..., None])
@@ -191,7 +195,8 @@ def _online_block(qc, kc, vc, qpos, kpos, causal, window, scale):
     padded keys have kpos < 0 and are masked."""
     sc = einsum("bshk,bthk->bhst", qc, kc).float() * scale
     msk = _mask(qpos, kpos, causal, window) & (kpos[None, :] >= 0)
-    sc = torch.where(msk, sc, torch.full_like(sc, NEG_INF))
+    sc = torch.where(replicate_like(msk, sc), sc,
+                     torch.full_like(sc, NEG_INF))
     w = torch.softmax(sc, dim=-1)
     return einsum("bhst,bthk->bshk", w.to(qc.dtype), vc)
 
@@ -200,7 +205,8 @@ def _online_block(qc, kc, vc, qpos, kpos, causal, window, scale):
 def attend(q, k, v, *, causal=True, window=None, q_offset=0, impl="auto"):
     if impl not in ("auto", "pallas", "naive", "chunked"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    if impl in ("auto", "pallas") and q.device.type != "cpu":
+    if impl in ("auto", "pallas") and (q.device.type != "cpu"
+                                       or is_dtensor(q)):
         if q_offset:
             raise ValueError("the flash_attention kernel takes no q_offset "
                              f"(got {q_offset}); use impl='naive'")
@@ -223,7 +229,10 @@ def apply_attention(cfg, p, x, positions, *, causal=True, window="cfg",
     if cfg.rope != "none":
         rot = rope_mod.positional(cfg, positions)
         q, k = rot(q), rot(k)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
     o = attend(q, k, v, causal=causal, window=window, impl=impl)
+    o = shard(o, "batch", "seq", "heads", None)
     return einsum("bshk,hkd->bsd", o, p["wo"])
 
 
@@ -232,9 +241,10 @@ def apply_cross_attention(cfg, p, x, cross, *, impl="auto"):
     no window, no rope) over K/V already formed from the encoder output:
     ``cross`` is {"k", "v"} (B,T,KV,hd), `kv_of` the encoder output or one
     layer's slice of the cross cache, read in place."""
-    q = _proj(x, p["wq"], p.get("bq"))
-    o = attend(q, cross["k"], cross["v"], causal=False, window=None,
-               impl=impl)
+    q = shard(_proj(x, p["wq"], p.get("bq")), "batch", "seq", "heads", None)
+    k = shard(cross["k"], "batch", "seq", "kv_heads", None)
+    o = attend(q, k, cross["v"], causal=False, window=None, impl=impl)
+    o = shard(o, "batch", "seq", "heads", None)
     return einsum("bshk,hkd->bsd", o, p["wo"])
 
 

@@ -16,6 +16,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, mlp_schema,
                                        norm_schema)
+from repro_torch.sharding import shard
 
 
 def dense_block_schema(cfg):
@@ -48,7 +49,8 @@ def apply_dense_block(cfg, p, x, positions, *, causal=True, impl="auto",
                                  positions, causal=causal, impl=impl,
                                  window=window)
     x = x + h
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+    x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
+    return shard(x, "batch", "seq", "embed")
 
 
 def _moe_ffn(cfg, p, x):
@@ -64,11 +66,13 @@ def apply_moe_block(cfg, p, x, positions, *, impl="auto"):
     """Returns (x, aux): the block's output and its load-balance loss."""
     h = attn_mod.apply_attention(cfg, p["attn"], apply_norm(cfg, p["ln1"], x),
                                  positions, causal=True, impl=impl)
-    return _moe_ffn(cfg, p, x + h)
+    x, aux = _moe_ffn(cfg, p, x + h)
+    return shard(x, "batch", "seq", "embed"), aux
 
 
 def apply_ssm_block(cfg, p, x):
-    return x + ssm_mod.apply_ssm(cfg, p["ssm"], apply_norm(cfg, p["ln1"], x))
+    y = ssm_mod.apply_ssm(cfg, p["ssm"], apply_norm(cfg, p["ln1"], x))
+    return shard(x + y, "batch", "seq", "embed")
 
 
 def apply_decoder_block(cfg, p, x, enc_out, positions, *, impl="auto"):
@@ -78,7 +82,8 @@ def apply_decoder_block(cfg, p, x, enc_out, positions, *, impl="auto"):
     x = x + attn_mod.apply_cross_attention(
         cfg, p["cross"], apply_norm(cfg, p["ln2"], x),
         dict(zip(("k", "v"), attn_mod.kv_of(p["cross"], enc_out))), impl=impl)
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln3"], x))
+    x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln3"], x))
+    return shard(x, "batch", "seq", "embed")
 
 
 def apply_dense_block_prefill(cfg, p, x, positions, cache, *, impl="auto"):

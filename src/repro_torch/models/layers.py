@@ -5,8 +5,8 @@ A model is described by a *schema*: nested dicts whose leaves are
 `ParamSpec`s (shape, logical axes, init). Parameters are plain dicts of
 tensors with the JAX package's leaf names (``wq``, ``scale``, ...), not
 `nn.Module`s, so `convert.params_from_jax` maps one tree onto the other
-leaf for leaf. The logical axes are kept for the sharding slice; nothing
-reads them yet.
+leaf for leaf. The logical axes place the parameters on a mesh
+(`models.model.param_axes`, `sharding.distribute_tree`).
 
 Weights are drawn here from an explicit `torch.Generator` on the target
 device: the same distribution as `init_from_schema` in JAX, not the same
@@ -20,6 +20,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding import shard
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -90,6 +92,14 @@ def stack_layers(schema, n_layers: int):
                             s.init, s.std, s.dtype), schema)
 
 
+def pad_front(x, n: int):
+    """``x`` (B, S, ...) with ``n`` zero rows in front along dim 1,
+    concatenated rather than padded: a DTensor's pad takes a one-mesh-dim
+    rule in some torch releases (2.11)."""
+    front = torch.zeros_like(x[:, :1]).expand(-1, n, *x.shape[2:])
+    return torch.cat([front, x], dim=1)
+
+
 def einsum(eq: str, *operands):
     """`torch.einsum` after promoting the operands to one dtype, as
     `jnp.einsum` promotes (a bf16 weight against an f32 activation gives
@@ -155,9 +165,12 @@ def apply_mlp(cfg, p, x):
     if cfg.mlp_act == "swiglu":
         g = einsum("...d,df->...f", x, p["wi_gate"])
         u = einsum("...d,df->...f", x, p["wi_up"])
-        return einsum("...f,fd->...d", F.silu(g) * u, p["wo"])
+        h = F.silu(g) * u
+        h = shard(h, "batch", "seq", "mlp") if h.ndim == 3 else h
+        return einsum("...f,fd->...d", h, p["wo"])
     h = einsum("...d,df->...f", x, p["wi"]) + p["bi"]
     h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
+    h = shard(h, "batch", "seq", "mlp") if h.ndim == 3 else h
     return einsum("...f,fd->...d", h, p["wo"]) + p["bo"]
 
 

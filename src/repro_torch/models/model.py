@@ -43,8 +43,10 @@ scanned block); the forward's values are the same bits either way.
 `abstract_params` gives the schema's tensors on the ``meta`` device and
 `input_specs` the inputs' shapes. `loss_fn` is the training loss (the
 masked mean next-token NLL plus AUX_LOSS_WEIGHT times the MoE load-balance
-loss). `param_axes` and the inputs' logical axes wait for the parameter
-sharding (A18b).
+loss). `param_axes` gives the parameters' logical axes (on a mesh
+`sharding.distribute_tree` places them as DTensors) and `input_specs` the
+inputs' (`INPUT_AXES`; beside DTensor parameters the forward places the
+batch by them).
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -70,6 +73,12 @@ from repro_torch.models.layers import (ParamSpec, apply_norm,
 WHISPER_ENC_FRAMES = 1500     # 30 s of audio at 50 Hz after the conv stub
 VLM_VISION_FRACTION = 8       # 1/8 of the sequence is patch embeddings
 AUX_LOSS_WEIGHT = 0.01
+# the inputs' logical axes (`input_specs`; a loss mask is laid out as the
+# labels)
+INPUT_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+              "mask": ("batch", "seq"),
+              "vision_embeds": ("batch", "seq", "embed"),
+              "frames": ("batch", "seq", "embed")}
 PORTED = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
@@ -134,23 +143,35 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, *,
     dev = resolve_device(device)
     dt = torch_dtype(dtype or cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return _port_tree(cfg, lambda schema: init_from_schema(schema, gen, dev,
+                                                           dt))
 
-    def init(schema):
-        return init_from_schema(schema, gen, dev, dt)
 
-    params = {"embed": init(embed_schema(cfg))}
+def _port_tree(cfg: ArchConfig, fn):
+    """The port's parameter tree (layers a list), ``fn`` of each part's
+    schema, the parts taken in the order `init_params` draws them."""
+    tree = {"embed": fn(embed_schema(cfg))}
     if cfg.family == "audio":
-        params["enc_layers"] = [init(blocks.dense_block_schema(cfg))
-                                for _ in range(cfg.n_enc_layers)]
-        params["enc_lnf"] = init(norm_schema(cfg))
+        tree["enc_layers"] = [fn(blocks.dense_block_schema(cfg))
+                              for _ in range(cfg.n_enc_layers)]
+        tree["enc_lnf"] = fn(norm_schema(cfg))
     layer = _layer_schema(cfg)
-    params["layers"] = [init(layer) for _ in range(cfg.n_layers)]
+    tree["layers"] = [fn(layer) for _ in range(cfg.n_layers)]
     if _shared_period(cfg):
-        params["shared"] = init(blocks.dense_block_schema(cfg))
+        tree["shared"] = fn(blocks.dense_block_schema(cfg))
     if cfg.family == "vlm":
-        params["vision_proj"] = init(_vision_proj_schema(cfg))
-    params["lnf"] = init(norm_schema(cfg))
-    return params
+        tree["vision_proj"] = fn(_vision_proj_schema(cfg))
+    tree["lnf"] = fn(norm_schema(cfg))
+    return tree
+
+
+def param_axes(cfg: ArchConfig):
+    """Each parameter's logical axes, a tree like `init_params`' (layers a
+    list): the reference's `param_axes` without its leading "layers" axis,
+    which replicates (`sharding.RULES["layers"]` is empty)."""
+    check_family(cfg)
+    return _port_tree(cfg, lambda schema: map_schema(lambda s: s.axes,
+                                                     schema))
 
 
 def abstract_params(cfg: ArchConfig, dtype=None):
@@ -213,6 +234,14 @@ def _on(x, dev) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), device=dev)
 
 
+def _input(params, name: str, x, dev) -> torch.Tensor:
+    """Input ``name`` as a tensor on ``dev``; with DTensor parameters a
+    DTensor placed by its logical axes (`INPUT_AXES`) on their mesh: every
+    rank holds the whole batch and keeps its block."""
+    return sharding.place_like(_on(x, dev), params["embed"]["tok"],
+                               INPUT_AXES[name])
+
+
 def _positions(b: int, s: int, dev) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
 
@@ -256,8 +285,9 @@ def _embed(cfg: ArchConfig, params, inputs, tokens, dev):
     """Token embeddings; a VLM's projected patch embeddings ahead of them."""
     x = embed_tokens(cfg, params["embed"], tokens)
     if cfg.family == "vlm":
-        vis = einsum("bsd,de->bse", _on(inputs["vision_embeds"], dev),
-                     params["vision_proj"]["w"])
+        vis = einsum("bsd,de->bse",
+                     _input(params, "vision_embeds", inputs["vision_embeds"],
+                            dev), params["vision_proj"]["w"])
         x = torch.cat([vis.to(x.dtype), x], dim=1)
     return x
 
@@ -265,8 +295,8 @@ def _embed(cfg: ArchConfig, params, inputs, tokens, dev):
 def _embed_decoder(cfg: ArchConfig, params, tokens):
     """An audio decoder's token embeddings plus the sinusoid."""
     x = embed_tokens(cfg, params["embed"], tokens)
-    return x + sinusoid(x.shape[1], cfg.d_model,
-                        device=x.device).to(x.dtype)[None]
+    pe = sinusoid(x.shape[1], cfg.d_model, device=x.device).to(x.dtype)
+    return x + sharding.replicate_like(pe, x)[None]
 
 
 # ===================================================================== forward
@@ -278,13 +308,16 @@ def forward(cfg: ArchConfig, params, inputs: Dict[str, Any], *,
     block (`_block`)."""
     check_family(cfg)
     dev, tokens = _device_inputs(params, inputs["tokens"], device)
+    tokens = _input(params, "tokens", tokens, dev)
     if cfg.family == "audio":
         return _forward_audio(cfg, params, inputs, tokens, dev, impl=impl,
                               remat=remat)
-    x = _embed(cfg, params, inputs, tokens, dev)
+    x = sharding.shard(_embed(cfg, params, inputs, tokens, dev), "batch",
+                       "seq", "embed")
     b, s, _ = x.shape
-    positions = _positions(b, s, dev)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    positions = _input(params, "tokens", _positions(b, s, dev), dev)
+    aux = sharding.replicate_like(torch.zeros((), dtype=torch.float32,
+                                              device=dev), x)
     period = _shared_period(cfg)
 
     def dense(p_l, h):
@@ -316,11 +349,12 @@ def encode_audio(cfg: ArchConfig, params, frames, *, impl: str = "auto",
     """Run the (bidirectional) audio encoder over stub frame embeddings
     (B, S_enc, D) -> (B, S_enc, D)."""
     dev = resolve_device(device)
-    frames = _on(frames, dev)
+    frames = _input(params, "frames", frames, dev)
     b, s_enc, _ = frames.shape
-    enc = frames + sinusoid(s_enc, cfg.d_model, device=dev).to(
-        frames.dtype)[None]
-    pos_enc = _positions(b, s_enc, dev)
+    pe = sinusoid(s_enc, cfg.d_model, device=dev).to(frames.dtype)
+    enc = sharding.shard(frames + sharding.replicate_like(pe, frames)[None],
+                         "batch", "seq", "embed")
+    pos_enc = _input(params, "tokens", _positions(b, s_enc, dev), dev)
 
     def enc_block(p_l, h):
         return blocks.apply_dense_block(cfg, p_l, h, pos_enc, causal=False,
@@ -350,9 +384,10 @@ def _forward_audio(cfg, params, inputs, tokens, dev, *, impl="auto",
                    remat=False):
     enc = encode_audio(cfg, params, inputs["frames"], impl=impl, remat=remat,
                        device=dev)
-    x = _embed_decoder(cfg, params, tokens)
+    x = sharding.shard(_embed_decoder(cfg, params, tokens), "batch", "seq",
+                       "embed")
     b, s, _ = x.shape
-    pos_dec = _positions(b, s, dev)
+    pos_dec = _input(params, "tokens", _positions(b, s, dev), dev)
 
     def dec_block(p_l, h, enc):
         return blocks.apply_decoder_block(cfg, p_l, h, enc, pos_dec,
@@ -361,7 +396,8 @@ def _forward_audio(cfg, params, inputs, tokens, dev, *, impl="auto",
         x = _block(remat, dec_block, p_l, x, enc)
     x = apply_norm(cfg, params["lnf"], x)
     return (unembed(cfg, params["embed"], x),
-            torch.zeros((), dtype=torch.float32, device=dev))
+            sharding.replicate_like(torch.zeros((), dtype=torch.float32,
+                                                device=dev), x))
 
 
 # ===================================================================== prefill
@@ -454,13 +490,15 @@ def loss_fn(cfg: ArchConfig, params, batch, *, impl: str = "auto",
     logits, aux = forward(cfg, params, batch, impl=impl, remat=remat,
                           device=device)
     dev = logits.device
-    labels = _on(batch["labels"], dev).long()
+    labels = _input(params, "labels", batch["labels"], dev).long()
     if cfg.family == "vlm":
         logits = logits[:, -labels.shape[1]:]
     mask = batch.get("mask")
-    mask = (torch.ones(labels.shape, dtype=torch.float32, device=dev)
-            if mask is None else _on(mask, dev).float())
-    logits = logits.float()
+    mask = (torch.ones_like(labels, dtype=torch.float32)
+            if mask is None else _input(params, "mask", mask, dev).float())
+    # every vocab entry on each rank: the gold logit's gather does not run
+    # on vocab-sharded DTensor logits
+    logits = sharding.shard(logits.float(), "batch", "seq", None)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = (logz - gold) * mask
@@ -491,8 +529,8 @@ def init_decode_caches(cfg: ArchConfig, batch: int, max_len: int,
     family {"self", "cross"}, the cross cache at ``enc_frames`` slots (JAX's
     WHISPER_ENC_FRAMES; its engine sizes the slot cache from `prefill`'s
     output instead, at its own frame count). JAX also returns the leaves'
-    logical axes; sharding waits (A18b), so the port returns the cache
-    alone."""
+    logical axes; the sharded cache waits for sharded serving (ROADMAP
+    A18c), so the port returns the cache alone."""
     check_family(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(dtype)
@@ -561,11 +599,11 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, pos, *,
 
 # ===================================================================== inputs
 def input_specs(cfg: ArchConfig, shape: InputShape):
-    """The model's inputs for ``shape`` as tensors on the ``meta`` device:
-    the names, shapes and dtypes of JAX's abstract `input_specs` (tokens
-    int32, embeddings in the config's dtype). The reference also returns
-    their logical axes; those wait for the sharding (ROADMAP.md, A18b).
-    Concrete batches of these shapes come from `data.pipeline.make_batch`."""
+    """The model's inputs for ``shape`` as tensors on the ``meta`` device,
+    and their logical axes: (inputs, axes), the names, shapes, dtypes and
+    axes of JAX's abstract `input_specs` (tokens int32, embeddings in the
+    config's dtype). Concrete batches of these shapes come from
+    `data.pipeline.make_batch`."""
     b, s = shape.global_batch, shape.seq_len
     act = torch_dtype(cfg.dtype)
 
@@ -573,7 +611,8 @@ def input_specs(cfg: ArchConfig, shape: InputShape):
         return torch.empty(shp, dtype=dt, device="meta")
 
     if shape.kind == "decode":
-        return {"tokens": mk((b, 1), torch.int32)}
+        return {"tokens": mk((b, 1), torch.int32)}, {"tokens": ("batch",
+                                                                None)}
     if cfg.family == "vlm":
         s_vis = s // VLM_VISION_FRACTION
         s = s - s_vis
@@ -586,4 +625,4 @@ def input_specs(cfg: ArchConfig, shape: InputShape):
         inputs = {"tokens": mk((b, s), torch.int32)}
     if shape.kind == "train":
         inputs["labels"] = mk((b, s), torch.int32)
-    return inputs
+    return inputs, {k: INPUT_AXES[k] for k in inputs}

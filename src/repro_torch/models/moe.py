@@ -20,12 +20,14 @@ What JAX leaves to its sort and scatter orders the port fixes explicitly:
   from run to run.
 
 `apply_moe_ep` is the reference's expert-parallel path over a mesh of
-ranks (`torch.distributed`, a DeviceMesh with named dims). Routing and the
-capacity dispatch stay local to a rank; the only traffic is one
-all_to_all over the expert dim carrying each rank's dispatch buffer, its
-reverse for the combine, and a ZeRO all-gather of the expert weights over
-the batch dims. `apply_moe_auto` takes it under `sharding.use_mesh` exactly
-when the reference does, and `apply_moe` otherwise.
+ranks (`torch.distributed`, a DeviceMesh with named dims), on DTensor
+parameters (`sharding.distribute_tree`) or whole tensors, with gradients.
+Routing and the capacity dispatch stay local to a rank; the only traffic
+is one all_to_all over the expert dim carrying each rank's dispatch
+buffer, its reverse for the combine, and a ZeRO all-gather of the expert
+weights over the batch dims. `apply_moe_auto` takes it under
+`sharding.use_mesh` exactly when the reference does, and `apply_moe`
+otherwise.
 """
 from __future__ import annotations
 
@@ -105,11 +107,22 @@ def apply_moe(cfg, p, x, *, capacity_factor: Optional[float] = None
     """Returns (y, aux_loss). x (B,S,D).
 
     capacity_factor defaults to cfg.capacity_factor; set it large (>= E/K·S)
-    for exact no-drop routing (decode steps and consistency tests)."""
-    b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
+    for exact no-drop routing (decode steps and consistency tests). On
+    DTensors (a config the EP path does not take, on a mesh) it runs
+    `_moe_on_shards`."""
     if capacity_factor is None:
         capacity_factor = cfg.capacity_factor
+    if sharding.is_dtensor(x):
+        return _moe_on_shards(cfg, p, x, capacity_factor)
+    y, idx, probs = _moe_dispatch(cfg, p, x, capacity_factor)
+    return y, load_balance_loss(cfg, probs, idx)
+
+
+def _moe_dispatch(cfg, p, x, capacity_factor: float):
+    """`apply_moe`'s y, with the top-k ids and router probabilities its
+    load-balance loss reads."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
     gates, idx, probs = route(cfg, p, x)                     # (B,S,K)
     cap = capacity(s, k, e, capacity_factor)
 
@@ -141,7 +154,42 @@ def apply_moe(cfg, p, x, *, capacity_factor: Optional[float] = None
     y = torch.zeros_like(x)
     for j in range(k):                      # ascending expert id
         y = y + ye[:, :, j]
-    return y, load_balance_loss(cfg, probs, idx)
+    return y, idx, probs
+
+
+def _moe_on_shards(cfg, p, x, capacity_factor: float):
+    """`apply_moe` of DTensors. Its dispatch groups tokens by batch row, so
+    each rank runs it on its own batch block, the weights whole (under
+    `local_map`; their gradient partial over the batch dims), and the
+    load-balance loss comes from the blocks' expert counts and router
+    probability sums, summed over the mesh: the whole batch's, as on one
+    device. (The reference constrains its expert buffer to "batch" and
+    "experts" for XLA's partitioner; here no rank holds the buffer of
+    another's rows.)"""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    e = cfg.n_experts
+    px = sharding.placements(sharding.spec_for(
+        tuple(x.shape), ("batch", "seq", "embed"), mesh), mesh)
+    whole = tuple(Replicate() for _ in px)
+    summed = tuple(Partial() if q.is_shard() else Replicate() for q in px)
+    names = list(p)
+
+    def local(xl, *ws):
+        y, idx, probs = _moe_dispatch(cfg, dict(zip(names, ws)), xl,
+                                      capacity_factor)
+        return (y, F.one_hot(idx, e).sum((0, 1, 2)).float(),
+                probs.sum((0, 1)))
+    gw = sharding.grad_placements(whole, px)
+    y, counts, psum = local_map(
+        local, out_placements=(px, summed, summed),
+        in_placements=(px,) + (whole,) * len(names),
+        in_grad_placements=(px,) + (gw,) * len(names), device_mesh=mesh,
+        redistribute_inputs=True)(x, *(p[n] for n in names))
+    b, s, _ = x.shape
+    aux = e * torch.sum(counts / (b * s * cfg.top_k) * (psum / (b * s)))
+    return y, aux
 
 
 def _local_dispatch(x_flat, eid, gat, e: int, cap: int):
@@ -160,73 +208,164 @@ def _local_dispatch(x_flat, eid, gat, e: int, cap: int):
 
 
 # ==================================================================== EP path
+class _GatherWhole(torch.autograd.Function):
+    """Tiled all-gather whose result every rank of the group then holds
+    whole and alike (the EP output's reassembly): a rank's gradient is its
+    own block of the result's gradient, not a sum over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, ax):
+        ctx.dim, ctx.ax, ctx.n = dim, ax, x.shape[dim]
+        return ax.gather(x.detach(), dim, autograd=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.ax.index * ctx.n, ctx.n), None, None
+
+
+class _MeanWhole(torch.autograd.Function):
+    """The group's mean of a value, then held whole and alike by every rank
+    (the reference's pmean of the aux loss): the gradient of a rank's value
+    is the mean's gradient over the group size."""
+
+    @staticmethod
+    def forward(ctx, v, ax):
+        ctx.size = ax.size
+        t = ax.comm(v.detach()).clone()
+        import torch.distributed as dist
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=ax.group)
+        return (t / ax.size).to(v.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None
+
+
 class _Dim:
     """One mesh dim as the EP path uses it: its process group (None when
     the dim has one rank, which needs no collective), size and this rank's
-    index along it."""
+    index along it. The collectives carry gradients: `gather` and
+    `all_to_all` through `torch.distributed._functional_collectives`'
+    autograd forms, `gather_whole` and `mean_whole` through `_GatherWhole`
+    and `_MeanWhole`."""
 
     def __init__(self, mesh, name: str):
+        self.name = name
         self.size = sharding.mesh_sizes(mesh)[name]
         self.index = sharding.mesh_coords(mesh)[name]
         self.group = mesh.get_group(name) if self.size > 1 else None
 
-    def _comm(self, x):
+    def comm(self, x):
         """Collectives run on the host over gloo (ranks that share a GPU
         exchange host copies), on the device otherwise."""
         import torch.distributed as dist
         host = dist.get_backend(self.group) == "gloo"
-        return x.detach().to("cpu" if host else x.device).contiguous()
+        return x.to("cpu" if host else x.device).contiguous()
 
-    def all_gather(self, x, dim: int):
+    def gather(self, x, dim: int, autograd: bool = True):
         """Tiled all-gather: the ranks' ``x`` concatenated along ``dim`` in
-        index order."""
+        index order. Its gradient is the sum over the ranks of each one's
+        gradient of the whole (each rank uses the whole on its own
+        tokens)."""
         if self.group is None:
             return x
-        import torch.distributed as dist
-        xs = self._comm(x)
-        parts = [torch.empty_like(xs) for _ in range(self.size)]
-        dist.all_gather(parts, xs, group=self.group)
-        return torch.cat(parts, dim=dim).to(x.device)
+        import torch.distributed._functional_collectives as fc
+        fn = fc.all_gather_tensor_autograd if autograd else \
+            fc.all_gather_tensor
+        out = fn(self.comm(x), gather_dim=dim, group=self.group)
+        return fc.wait_tensor(out).to(x.device)
 
     def all_to_all(self, x):
         """x (size, ...): block j goes to index j; returns (size, ...) whose
-        block j came from index j."""
+        block j came from index j (its gradient: the reverse exchange)."""
         if self.group is None:
             return x
-        import torch.distributed as dist
-        xs = self._comm(x)
-        out = torch.empty_like(xs)
-        dist.all_to_all_single(out, xs, group=self.group)
-        return out.to(x.device)
+        import torch.distributed._functional_collectives as fc
+        out = fc.all_to_all_single_autograd(self.comm(x), None, None,
+                                            group=self.group)
+        return fc.wait_tensor(out).to(x.device)
 
-    def pmean(self, v):
-        if self.group is None:
-            return v
-        import torch.distributed as dist
-        t = self._comm(v).clone()
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
-        return (t / self.size).to(v.device)
+    def gather_whole(self, x, dim: int):
+        return x if self.group is None else _GatherWhole.apply(x, dim, self)
+
+    def mean_whole(self, v):
+        return v if self.group is None else _MeanWhole.apply(v, self)
+
+
+def _ep_blocks(p, x, *, mesh, ex, fsdp, seq_split: bool):
+    """The blocks of the parameters and of x that this rank's EP function
+    takes, as plain tensors: (router, wi_gate, wi_up, wo, x_loc). DTensors
+    are redistributed to the reference's shard_map specs (router experts
+    over ``ex``; wi / wo experts over ``ex`` and f over the batch axes; x's
+    batch over the batch axes and, with ``seq_split``, its sequence over
+    ``ex``) and their local blocks taken; whole tensors are sliced to the
+    same blocks. The router, read whole by every rank of the batch axes,
+    takes a partial gradient there."""
+    n_blk = math.prod(d.size for d in fsdp)
+    f_all = p["wi_gate"].shape[-1]
+    if x.shape[0] % n_blk or f_all % n_blk:
+        raise ValueError(f"batch {x.shape[0]} and expert hidden {f_all} "
+                         f"must split over the {n_blk} ranks of the batch "
+                         "axes")
+    if sharding.is_dtensor(x):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        names = mesh.mesh_dim_names
+        batch = {d.name for d in fsdp}
+
+        def pl(shards):
+            return [shards.get(n, Replicate()) for n in names]
+        exp = {ex.name: Shard(0)}
+        wi = pl({**exp, **{n: Shard(2) for n in batch}})
+        wo = pl({**exp, **{n: Shard(1) for n in batch}})
+        px = pl({**({ex.name: Shard(1)} if seq_split else {}),
+                 **{n: Shard(0) for n in batch}})
+        router = p["router"].redistribute(mesh, pl({ex.name: Shard(1)}))
+        return (router.to_local(grad_placements=pl(
+                    {ex.name: Shard(1), **{n: Partial() for n in batch}})),
+                p["wi_gate"].redistribute(mesh, wi).to_local(),
+                p["wi_up"].redistribute(mesh, wi).to_local(),
+                p["wo"].redistribute(mesh, wo).to_local(),
+                x.redistribute(mesh, px).to_local())
+    blk = 0
+    for d in fsdp:                      # the first batch axis is the major
+        blk = blk * d.size + d.index
+    e_loc = p["wi_gate"].shape[0] // ex.size
+    bl, fl = x.shape[0] // n_blk, f_all // n_blk
+    es = slice(ex.index * e_loc, (ex.index + 1) * e_loc)
+    fs = slice(blk * fl, (blk + 1) * fl)
+    x_full = x[blk * bl:(blk + 1) * bl]
+    s = x_full.shape[1] // ex.size if seq_split else x_full.shape[1]
+    i0 = ex.index * s if seq_split else 0
+    return (p["router"][:, es], p["wi_gate"][es, :, fs],
+            p["wi_up"][es, :, fs], p["wo"][es, fs, :], x_full[:, i0:i0 + s])
 
 
 def apply_moe_ep(cfg, p, x, *, mesh, batch_axes, expert_axis="model",
                  capacity_factor: Optional[float] = None):
     """Expert-parallel MoE over ``mesh``: call on every rank of its process
-    group. Returns (y, aux_loss), the same on every rank.
+    group. Returns (y, aux_loss).
 
-    ``p`` and ``x`` (B, S, D) come whole to every rank (the parameters have
-    no sharded placement until ROADMAP A18b); each rank takes its part as
-    the reference's shard_map specs place it: x's batch block over
-    ``batch_axes``, its experts on ``expert_axis`` and its block of the
-    expert hidden dim f over ``batch_axes``. Then, as the reference: each
-    expert-axis peer routes its own S/m sequence slice (when m divides S),
-    with the router gathered over the expert axis; the capacity dispatch is
-    local (``capacity_factor`` over the rank's B·S·K entries); one
-    all_to_all sends each expert block to its owner and one brings the
-    outputs back; the expert weights are all-gathered over the batch axes
-    (f dim); the aux loss is averaged over both, and y is gathered whole.
-    A token's k outputs are summed in ascending expert id, the order of the
-    reference's scatter-add. The collectives carry no gradient: under
-    autograd on a mesh of several ranks this raises (ROADMAP A18b)."""
+    ``p`` and ``x`` (B, S, D) are DTensors on ``mesh`` (a model placed by
+    `sharding.distribute_tree`), or whole tensors on every rank. Each rank
+    takes its blocks as the reference's shard_map specs place them
+    (`_ep_blocks`): x's batch block over ``batch_axes``, its experts on
+    ``expert_axis`` and its block of the expert hidden dim f over
+    ``batch_axes``. Then, as the reference: each expert-axis peer routes its
+    own S/m sequence slice (when m divides S), with the router gathered over
+    the expert axis; the capacity dispatch is local (``capacity_factor``
+    over the rank's B·S·K entries); one all_to_all sends each expert block
+    to its owner and one brings the outputs back; the expert weights are
+    all-gathered over the batch axes (f dim); the aux loss is averaged over
+    both. A token's k outputs are summed in ascending expert id, the order
+    of the reference's scatter-add. For DTensors y is a DTensor split as
+    the blocks were and aux a replicated one; for whole tensors y is
+    gathered whole on every rank and aux is the same on every rank.
+
+    Gradients flow through every collective. With whole tensors a rank's
+    gradient of ``p`` and ``x`` covers its own blocks (the ranks' sum is the
+    gradient); with DTensors they come in the DTensors' placements. A
+    sequence that does not split over m > 1 expert-axis ranks is routed by
+    every peer alike and takes no gradient (it raises)."""
     if capacity_factor is None:
         capacity_factor = cfg.capacity_factor
     e, k = cfg.n_experts, cfg.top_k
@@ -236,44 +375,24 @@ def apply_moe_ep(cfg, p, x, *, mesh, batch_axes, expert_axis="model",
         raise ValueError(f"{e} experts do not split over {m_size} "
                          f"{expert_axis!r} ranks")
     e_loc = e // m_size
-    fsdp_axes = [a for a in batch_axes if a in sizes]
-    if torch.is_grad_enabled() and max(
-            [m_size] + [sizes[a] for a in fsdp_axes]) > 1 and (
-            x.requires_grad or any(v.requires_grad for v in p.values())):
-        raise NotImplementedError(
-            "apply_moe_ep under autograd on a mesh of several ranks: its "
-            "collectives carry no gradient yet (ROADMAP A18b)")
     ex = _Dim(mesh, expert_axis)
-    fsdp = [_Dim(mesh, a) for a in fsdp_axes]
-    n_blk = math.prod(d.size for d in fsdp)
-    blk = 0
-    for d in fsdp:                      # the first batch axis is the major
-        blk = blk * d.size + d.index
-    bsz_all, f_all = x.shape[0], p["wi_gate"].shape[-1]
-    if bsz_all % n_blk or f_all % n_blk:
-        raise ValueError(f"batch {bsz_all} and expert hidden {f_all} must "
-                         f"split over the {n_blk} ranks of {batch_axes}")
-    bl, fl = bsz_all // n_blk, f_all // n_blk
-    es = slice(ex.index * e_loc, (ex.index + 1) * e_loc)
-    fs = slice(blk * fl, (blk + 1) * fl)
-    x_full = x[blk * bl:(blk + 1) * bl]
-    router = p["router"][:, es]
-    wi_g, wi_u, wo = p["wi_gate"][es, :, fs], p["wi_up"][es, :, fs], \
-        p["wo"][es, fs, :]
-
-    b, s_full, d = x_full.shape
-    # x is replicated over the expert axis: each peer routes its own s/m
-    # slice, so each token is routed once (not m times)
+    fsdp = [_Dim(mesh, a) for a in batch_axes if a in sizes]
+    s_full = x.shape[1]
     seq_split = s_full % m_size == 0 and s_full >= m_size
-    s = s_full // m_size if seq_split else s_full
-    x_loc = x_full[:, ex.index * s:(ex.index + 1) * s] if seq_split \
-        else x_full
+    params_grad = x.requires_grad or any(v.requires_grad for v in p.values())
+    if not seq_split and m_size > 1 and torch.is_grad_enabled() \
+            and params_grad:
+        raise ValueError(f"a sequence of {s_full} tokens does not split over "
+                         f"the {m_size} {expert_axis!r} ranks: every peer "
+                         "routes it whole, which has no gradient path")
+    router, wi_g, wi_u, wo, x_loc = _ep_blocks(p, x, mesh=mesh, ex=ex,
+                                               fsdp=fsdp, seq_split=seq_split)
+    b, s, d = x_loc.shape
     # ---- local routing (router gathered over the expert axis) ----
-    gates, idx, probs = route(cfg, {"router": ex.all_gather(router, 1)},
-                              x_loc)
-    aux = ex.pmean(load_balance_loss(cfg, probs, idx))
+    gates, idx, probs = route(cfg, {"router": ex.gather(router, 1)}, x_loc)
+    aux = ex.mean_whole(load_balance_loss(cfg, probs, idx))
     for dim in fsdp:
-        aux = dim.pmean(aux)
+        aux = dim.mean_whole(aux)
 
     n = b * s * k
     cap = max(1, int(math.ceil(n / e * capacity_factor)))
@@ -287,8 +406,8 @@ def apply_moe_ep(cfg, p, x, *, mesh, batch_axes, expert_axis="model",
     toks = recv.transpose(0, 1).reshape(e_loc, m_size * cap, d)
     # ---- ZeRO weight gather over the batch axes (f dim) ----
     for dim in fsdp:
-        wi_g, wi_u = dim.all_gather(wi_g, 2), dim.all_gather(wi_u, 2)
-        wo = dim.all_gather(wo, 1)
+        wi_g, wi_u = dim.gather(wi_g, 2), dim.gather(wi_u, 2)
+        wo = dim.gather(wo, 1)
     h = F.silu(einsum("ecd,edf->ecf", toks, wi_g))
     h = h * einsum("ecd,edf->ecf", toks, wi_u)
     y = einsum("ecf,efd->ecd", h, wo)                         # (e_loc,·,d)
@@ -302,14 +421,22 @@ def apply_moe_ep(cfg, p, x, *, mesh, batch_axes, expert_axis="model",
     ye = ye[inv].reshape(b * s, k, d)                         # token order
     perm = torch.sort(eid.reshape(b * s, k), dim=-1).indices
     ye = ye.gather(1, perm[..., None].expand(-1, -1, d))
-    contrib = torch.zeros((b * s, d), dtype=x_loc.dtype, device=x.device)
+    contrib = torch.zeros((b * s, d), dtype=x_loc.dtype,
+                          device=x_loc.device)
     for j in range(k):                      # ascending expert id
         contrib = contrib + ye[:, j]
     contrib = contrib.reshape(b, s, d)
+    if sharding.is_dtensor(x):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        pl = [Shard(1) if n == expert_axis and seq_split else
+              Shard(0) if n in {f.name for f in fsdp} else Replicate()
+              for n in mesh.mesh_dim_names]
+        return (DTensor.from_local(contrib, mesh, pl, run_check=False),
+                sharding.replicate_like(aux, x))
     if seq_split:       # reassemble the full sequence across the expert axis
-        contrib = ex.all_gather(contrib, 1)
+        contrib = ex.gather_whole(contrib, 1)
     for dim in reversed(fsdp):          # the batch blocks, minor axis first
-        contrib = dim.all_gather(contrib, 0)
+        contrib = dim.gather_whole(contrib, 0)
     return contrib, aux
 
 

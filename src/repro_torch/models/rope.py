@@ -5,7 +5,8 @@ M-RoPE splits the rotary half-dim into 3 sections driven by (temporal,
 height, width) position ids; for a text-only stream all three ids coincide
 and it gives RoPE's values. Frequencies are computed in numpy float32
 exactly as the JAX package computes them, angles in float32, and cos/sin
-cast to x's dtype.
+cast to x's dtype. Beside DTensor positions the frequencies are a
+replicated DTensor on their mesh.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import functools
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import replicate_like
 
 
 def _freqs(head_dim: int, theta: float):
@@ -27,10 +30,17 @@ def _freqs_on(head_dim: int, theta: float, device: torch.device):
     return torch.from_numpy(_freqs(head_dim, theta)).to(device)
 
 
+def _inv_freqs(positions, head_dim: int, theta: float):
+    """`_freqs` on positions' device; beside DTensor positions a
+    replicated DTensor on their mesh."""
+    return replicate_like(_freqs_on(head_dim, float(theta), positions.device),
+                          positions)
+
+
 def rope_angles(positions, head_dim: int, theta: float):
     """positions (..., S) -> angles (..., S, head_dim//2) in fp32."""
-    inv = _freqs_on(head_dim, float(theta), positions.device)
-    return positions[..., None].float() * inv
+    return positions[..., None].float() * _inv_freqs(positions, head_dim,
+                                                     theta)
 
 
 def _rotate(x, ang):
@@ -56,7 +66,7 @@ def mrope_sections(head_dim: int):
 def apply_mrope(x, positions3, theta: float = 10_000.0):
     """x (B,S,H,Dh); positions3 (3,B,S) = (temporal, height, width) ids."""
     head_dim = x.shape[-1]
-    inv = _freqs_on(head_dim, float(theta), positions3.device)
+    inv = _inv_freqs(positions3, head_dim, theta)
     angs, off = [], 0
     for i, sec in enumerate(mrope_sections(head_dim)):
         angs.append(positions3[i][..., None].float() * inv[off:off + sec])

@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import ParamSpec, einsum, rmsnorm
+from repro_torch.models.layers import ParamSpec, einsum, pad_front, rmsnorm
+from repro_torch.sharding import along
 
 CONV_WIDTH = 4
 
@@ -65,7 +66,7 @@ def _softplus(x):
 def causal_conv(xbc, w, b):
     """Depthwise causal conv, width CONV_WIDTH. xbc (B,S,C)."""
     s = xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, CONV_WIDTH - 1, 0))
+    pad = pad_front(xbc, CONV_WIDTH - 1)
     out = sum(pad[:, i:i + s, :] * w[i] for i in range(CONV_WIDTH))
     return F.silu(out + b)
 
@@ -98,7 +99,7 @@ def ssd_chunked(xh, dt, a, bmat, cmat, chunk: int, init_state=None,
     xd = (xh * dt[..., None]).float().reshape(b, nc, chunk, h, p)
     bm = bmat.reshape(b, nc, chunk, n)
     cm = cmat.reshape(b, nc, chunk, n)
-    acum = torch.cumsum(da.float(), dim=2)                   # (B,NC,L,H)
+    acum = along(lambda t: torch.cumsum(t, dim=2), da.float(), 2)  # B,NC,L,H
 
     # intra-chunk term and each chunk's own state: the kernel
     y_intra, states = ops.ssd_chunk(xd, acum, bm, cm)

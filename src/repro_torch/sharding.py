@@ -11,16 +11,25 @@ of their sizes. Otherwise the next candidate (or replication) applies.
 
 The tenant-sharded fleet (`router.fleet.fleet_mesh_axes`) and the
 expert-parallel MoE (`models.moe.apply_moe_auto`) read the mesh through
-`spec_for` and `current_mesh`. `shard`, `named_sharding` and
-`tree_shardings`, which place model parameters and activations, come with
-the parameter sharding (ROADMAP A18b) and are not here yet.
+`spec_for` and `current_mesh`.
+
+Parameters and activations are DTensors (`torch.distributed.tensor`):
+`placements` turns a `spec_for` tuple into one `Shard(d)` or `Replicate()`
+per mesh dim (a joint candidate such as ("pod", "data") shards its tensor
+dim on both, the first mesh dim the major, as the reference's
+``P(("pod", "data"))``); `named_sharding` and `tree_shardings` give a
+tensor's or a tree's (mesh, placements); `distribute_tree` places a tree
+whose every rank holds the same whole tensors (each rank keeps its block,
+nothing is sent); `shard` is the reference's `with_sharding_constraint`.
+A tree is nested dicts and lists; its logical axes are a tree of the same
+structure whose leaves are tuples of axis names (`models.model.param_axes`).
 """
 from __future__ import annotations
 
 import contextlib
 import math
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 # Priority-ordered mesh-dim candidates per logical axis name. Each candidate
 # is a tuple of mesh dims (split jointly).
@@ -107,3 +116,143 @@ def spec_for(shape: Sequence[int], logical: Sequence[Optional[str]],
     while parts and parts[-1] is None:
         parts.pop()
     return tuple(parts)
+
+
+# ================================================================ DTensors
+class NamedSharding(NamedTuple):
+    """A tensor's place on a mesh: the mesh and one placement a mesh dim
+    (the reference's `jax.sharding.NamedSharding`)."""
+    mesh: object
+    placements: tuple
+
+
+def placements(spec: Tuple, mesh) -> tuple:
+    """A `spec_for` tuple as one `Shard(d)` or `Replicate()` a mesh dim.
+    A tensor dim split jointly over several mesh dims is `Shard(d)` on each
+    of them; DTensor splits it over them in mesh-dim order, so the first
+    (the "pod" of ("pod", "data")) is the major, as in the reference. A
+    mesh dim of one rank replicates: its one block is the whole (and
+    DTensor reshapes no dim sharded there)."""
+    from torch.distributed.tensor import Replicate, Shard
+    dim_of = {}
+    for d, part in enumerate(spec):
+        for name in ((part,) if isinstance(part, str) else part or ()):
+            dim_of[name] = d
+    return tuple(Shard(dim_of[n]) if n in dim_of and mesh.size(i) > 1
+                 else Replicate()
+                 for i, n in enumerate(mesh.mesh_dim_names))
+
+
+def named_sharding(shape: Sequence[int], logical: Sequence[Optional[str]],
+                   mesh) -> NamedSharding:
+    return NamedSharding(mesh, placements(spec_for(shape, logical, mesh),
+                                          mesh))
+
+
+def is_axes(a) -> bool:
+    """Whether ``a`` is a leaf of a logical-axes tree: a tuple of axis
+    names (None for an unnamed dim)."""
+    return isinstance(a, tuple) and all(isinstance(e, (str, type(None)))
+                                        for e in a)
+
+
+def map_axes(fn, tree, axes):
+    """``fn(leaf, logical)`` over a tree (nested dicts and lists) and its
+    logical-axes tree, keeping the structure."""
+    if is_axes(axes):
+        return fn(tree, axes)
+    if isinstance(axes, dict):
+        return {k: map_axes(fn, t, axes[k]) for k, t in tree.items()}
+    return [map_axes(fn, t, a) for t, a in zip(tree, axes, strict=True)]
+
+
+def tree_shardings(tree_shapes, tree_axes, mesh):
+    """The `NamedSharding` of each leaf of a tree of tensors (any device,
+    ``meta`` too) or shapes, given its logical-axes tree."""
+    return map_axes(lambda s, ax: named_sharding(tuple(getattr(s, "shape",
+                                                               s)), ax, mesh),
+                    tree_shapes, tree_axes)
+
+
+def distribute(x, logical, mesh):
+    """``x``, whole and alike on every rank (drawn from the same seed, or
+    the same batch), as a DTensor placed by its logical axes: each rank
+    keeps its own block and nothing is sent (``src_data_rank=None``). It
+    keeps ``x``'s ``requires_grad``."""
+    from torch.distributed.tensor import distribute_tensor
+    ns = named_sharding(tuple(x.shape), logical, mesh)
+    return distribute_tensor(x.detach(), mesh, ns.placements,
+                             src_data_rank=None).requires_grad_(
+                                 x.requires_grad)
+
+
+def distribute_tree(tree, tree_axes, mesh):
+    """`distribute` over a tree and its logical-axes tree."""
+    return map_axes(lambda t, ax: distribute(t, ax, mesh), tree, tree_axes)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def shard(x, *logical: Optional[str]):
+    """The reference's `with_sharding_constraint` by logical names: a
+    DTensor redistributed to the placements `spec_for` gives on the current
+    mesh (differentiable); without a mesh, or for a plain tensor, ``x``
+    unchanged (the one-device path)."""
+    mesh = current_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    want = placements(spec_for(tuple(x.shape), logical, mesh), mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def replicate_like(t, ref):
+    """``t``, a tensor every rank computes alike, as a `Replicate()` DTensor
+    on ``ref``'s mesh when ``ref`` is a DTensor (a plain tensor cannot meet
+    a DTensor in an operation); ``t`` itself otherwise."""
+    if not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def place_like(x, ref, logical):
+    """``x``, a tensor whole and alike on every rank (an input, or built
+    from the input's shape), as a DTensor placed by its logical axes on
+    ``ref``'s mesh when ``ref`` is a DTensor; ``x`` itself otherwise."""
+    if not is_dtensor(ref) or is_dtensor(x):
+        return x
+    return distribute(x, logical, ref.device_mesh)
+
+
+def along(fn, x, dim: int):
+    """``fn(x)`` for an ``fn`` that works along tensor dim ``dim`` alone (a
+    cumsum): on a DTensor, on each rank's block, its placements kept
+    (``dim`` must be whole on every rank). A DTensor's cumsum takes a flip
+    in its backward, which DTensor has no rule for in some torch releases
+    (2.11)."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import DTensor
+    dim %= x.ndim
+    if any(p.is_shard(dim) or p.is_partial() for p in x.placements):
+        raise ValueError(f"dim {dim} of placements {x.placements} is not "
+                         "whole on every rank")
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
+                              run_check=False)
+
+
+def grad_placements(p_in: tuple, p_main: tuple) -> tuple:
+    """The gradient placements of an input with placements ``p_in`` that
+    every rank of a mesh dim reads whole beside a main input split over that
+    dim (``p_main``): there each rank's gradient is a part of the sum,
+    `Partial()`; elsewhere ``p_in``."""
+    from torch.distributed.tensor import Partial
+    return tuple(Partial() if m.is_shard() and not i.is_shard() else i
+                 for i, m in zip(p_in, p_main))

@@ -10,8 +10,12 @@ the reference's pure functions do.
 The step's scalars (the learning rate and the bias corrections) are
 computed on the host from the step count, each transcendental in float64
 and rounded once to float32, so the card and the CPU use the same bits.
-`abstract_adamw` and `adamw_state_axes` wait for the parameter sharding
-(ROADMAP A18b).
+
+On DTensor params (`sharding.distribute_tree`) the state's m, v and
+master take each param's placements (`adamw_state_axes`: the params'
+logical axes), every update is local to a rank's block, and `global_norm`
+is a full reduction over the mesh. `abstract_adamw` gives the state's
+tensors on the ``meta`` device.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.layers import torch_dtype
+from repro_torch.sharding import is_dtensor
 
 
 @dataclass(frozen=True)
@@ -89,18 +94,43 @@ def init_adamw(cfg: AdamWConfig, params):
     dev = tree_leaves(params)[0].device
     return {
         "step": torch.zeros((), dtype=torch.int32, device=dev),
-        "m": tree_map(lambda p: torch.zeros(p.shape, dtype=mdt,
-                                            device=p.device), params),
-        "v": tree_map(lambda p: torch.zeros(p.shape, dtype=mdt,
-                                            device=p.device), params),
+        "m": tree_map(lambda p: torch.zeros_like(p, dtype=mdt), params),
+        "v": tree_map(lambda p: torch.zeros_like(p, dtype=mdt), params),
         "master": tree_map(lambda p: p.detach().to(wdt, copy=True), params),
     }
 
 
+def abstract_adamw(cfg: AdamWConfig, abstract_p):
+    """`init_adamw`'s tree as tensors on the ``meta`` device (nothing
+    allocated), for a tree of (meta) params."""
+    mdt = torch_dtype(cfg.moment_dtype)
+    wdt = torch_dtype(cfg.master_dtype)
+
+    def meta(p, dt):
+        return torch.empty(p.shape, dtype=dt, device="meta")
+    return {"step": torch.empty((), dtype=torch.int32, device="meta"),
+            "m": tree_map(lambda p: meta(p, mdt), abstract_p),
+            "v": tree_map(lambda p: meta(p, mdt), abstract_p),
+            "master": tree_map(lambda p: meta(p, wdt), abstract_p)}
+
+
+def adamw_state_axes(param_axes):
+    """The optimizer state's logical axes: the params' (fully sharded like
+    them); the step count's ()."""
+    return {"step": (), "m": param_axes, "v": param_axes,
+            "master": param_axes}
+
+
+def _leaf_sq(g) -> torch.Tensor:
+    """Σ g² in fp32, as a plain 0-d tensor: a DTensor's over the whole
+    mesh."""
+    sq = torch.sum(torch.square(g.float()))
+    return sq.full_tensor() if is_dtensor(sq) else sq
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt(Σ over leaves of Σ g²), in fp32: a 0-d tensor."""
-    sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(tree)]
-    return torch.sqrt(sum(sq))
+    return torch.sqrt(sum(_leaf_sq(g) for g in tree_leaves(tree)))
 
 
 def _bias_correction(beta: float, step: int) -> float:

@@ -5,9 +5,15 @@ the card its attention and SSD cores run the CUDA kernels through their
 autograd Functions (`kernels.ops`): the forward is the kernel, the
 backward differentiates the plain version, recomputed on the saved
 inputs. ``remat=True`` checkpoints each block, so a block's forward (its
-kernels included) runs again in the backward pass. The reference's
-distributed lowering (a mesh and its parameter shardings) waits for
-ROADMAP A18b: these steps run on one device.
+kernels included) runs again in the backward pass.
+
+Under a mesh the parameters are DTensors placed by `models.model.
+param_axes` (`sharding.distribute_tree`), and the optimizer state takes
+their placements (`optimizer.init_adamw` of them); the batch comes whole to
+every rank and is placed by `input_specs`' axes inside the forward; the
+gradients come back in the parameters' placements; the loss and metrics
+are plain tensors, the same on every rank. The step computes what the
+one-device step computes.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
@@ -24,17 +31,36 @@ from repro_torch.train import optimizer as opt
 def value_and_grad(cfg: ArchConfig, params, batch, *, impl: str = "auto",
                    remat: bool = True, device="cuda"):
     """(loss, metrics, grads) of `models.model.loss_fn` at ``params``: the
-    loss and metrics detached, the gradients a tree like ``params`` in the
-    params' dtypes, None where a leaf does not reach the loss."""
+    loss and metrics detached (plain tensors also for DTensor params), the
+    gradients a tree like ``params`` in the params' dtypes (and a
+    DTensor's placements), None where a leaf does not reach the loss."""
     dev = resolve_device(device)
     leaves = opt.tree_leaves(params)
     xs = [p.detach().requires_grad_(True) for p in leaves]
     it = iter(xs)
     loss, metrics = M.loss_fn(cfg, opt.tree_map(lambda _: next(it), params),
                               batch, impl=impl, remat=remat, device=dev)
-    grads = iter(torch.autograd.grad(loss, xs, allow_unused=True))
-    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            opt.tree_map(lambda _: next(grads), params))
+    grads = [_placed_like(g, p) for g, p in
+             zip(torch.autograd.grad(loss, xs, allow_unused=True), xs)]
+    it = iter(grads)
+    return (_whole(loss), {k: _whole(v) for k, v in metrics.items()},
+            opt.tree_map(lambda _: next(it), params))
+
+
+def _whole(t) -> torch.Tensor:
+    """A detached plain tensor (a DTensor's whole value)."""
+    t = t.detach()
+    return t.full_tensor() if sharding.is_dtensor(t) else t
+
+
+def _placed_like(g, p):
+    """A DTensor gradient in its parameter's placements (it may come back
+    partial or otherwise placed)."""
+    if g is None or not sharding.is_dtensor(g):
+        return g
+    if tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def make_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, *,
@@ -61,8 +87,8 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.AdamWConfig, *,
             loss, metrics, grads = loss_grads(params, batch)
         else:
             size = len(batch["tokens"]) // microbatch
-            grads = opt.tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = opt.tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             loss = torch.zeros((), dtype=torch.float32, device=dev)
             for i in range(microbatch):
                 part = {k: v[i * size:(i + 1) * size]

@@ -102,3 +102,128 @@ def fail_on(rank: int) -> int:
         raise ValueError(f"rank {rank} fails on purpose")
     dist.barrier()
     return dist.get_rank()
+
+
+# ======================================================= parameter sharding
+def sharded_steps(steps, moe_grad, attn, mesh_shape=(2, 2)) -> dict:
+    """The sharding tests' rank function, on a ("data", "model") mesh of
+    ``mesh_shape`` ranks (CPU, gloo):
+
+    * ``steps``: [(arch name, capacity factor or None, params, AdamW
+      kwargs, [batch, ...])]: the params (port trees from JAX's weights)
+      placed by `param_axes`, `init_adamw` of them, then one sharded
+      `make_train_step` (remat) a batch. Returns the losses and grad
+      norms, the final params whole, and the placements of each
+      DTensor leaf's state (m, v, master against the param's).
+    * ``moe_grad``: (params, x, w) of the reduced OLMoE layer at capacity
+      64, whole on every rank: `apply_moe_ep`'s y, aux and this rank's
+      gradients of (y · w).sum() + aux; and `apply_moe`'s on DTensors
+      placed by `moe_schema`'s axes (whole).
+    * ``attn``: [(q, k, v, causal, impl, window)]: `attention.attend` of
+      DTensors placed by the reference's q / kv axes (impl "auto": through
+      `ops.flash_attention`; the plain routes on the "model" dim's 1-D
+      mesh), gathered whole, and the gradients of (o · cot).sum() for
+      cot = q's values, whole.
+
+    Also `shard` (a redistribute under `use_mesh`, a no-op without) and
+    `make_production_mesh` on a group of the wrong size."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import sharding
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import attention
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    mesh = init_device_mesh("cpu", tuple(mesh_shape),
+                            mesh_dim_names=("data", "model"))
+    out = {"rank": dist.get_rank(), "steps": []}
+
+    def whole(t):
+        return (t.full_tensor() if sharding.is_dtensor(t) else t
+                ).detach().numpy()
+
+    for arch, cf, params, okw, batches in steps:
+        cfg = get_config(arch).reduced()
+        if cf is not None:
+            cfg = dataclasses.replace(cfg, capacity_factor=cf)
+        ocfg = opt.AdamWConfig(**okw)
+        step = ts.make_train_step(cfg, ocfg, remat=True, device="cpu")
+        with sharding.use_mesh(mesh):
+            p = sharding.distribute_tree(params, M.param_axes(cfg), mesh)
+            st = opt.init_adamw(ocfg, p)
+            state_placed = all(
+                tuple(s.placements) == tuple(q.placements)
+                for part in ("m", "v", "master")
+                for s, q in zip(opt.tree_leaves(st[part]),
+                                opt.tree_leaves(p)))
+            losses, norms = [], []
+            for batch in batches:
+                p, st, m = step(p, st, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+            out["steps"].append({
+                "arch": arch, "losses": losses, "grad_norms": norms,
+                "params": [whole(t) for t in opt.tree_leaves(p)],
+                "state_placed": state_placed,
+                "dtensor": all(sharding.is_dtensor(t)
+                               for t in opt.tree_leaves(p))})
+
+    mp, x, w = moe_grad
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(),
+                              capacity_factor=64.0)
+    mp = {k: v.clone().requires_grad_() for k, v in mp.items()}
+    x = x.clone().requires_grad_()
+    y, aux = moe.apply_moe_ep(cfg, mp, x, mesh=mesh, batch_axes=("data",))
+    grads = torch.autograd.grad((y * w).sum() + aux, [x, *mp.values()])
+    out["moe"] = (y.detach().numpy(), float(aux),
+                  [g.numpy() for g in grads])
+    # `apply_moe` itself on DTensors (the path of a config the EP path
+    # does not take, as Arctic's d_model-sharded experts)
+    with sharding.use_mesh(mesh):
+        dp = {k: sharding.distribute(v, ax, mesh).requires_grad_()
+              for (k, v), ax in zip(mp.items(), (
+                  s.axes for s in moe.moe_schema(cfg).values()))}
+        dx = sharding.distribute(x, ("batch", "seq", "embed"),
+                                 mesh).requires_grad_()
+        dw = sharding.distribute(w, ("batch", "seq", "embed"), mesh)
+        y, aux = moe.apply_moe(cfg, dp, dx)
+        grads = torch.autograd.grad((y * dw).sum() + aux,
+                                    [dx, *dp.values()])
+        out["moe_dtensor"] = (whole(y), float(whole(aux)),
+                              [whole(g) for g in grads])
+
+    out["attn"] = []
+    for q, k, v, causal, impl, window in attn:
+        # the plain routes on DTensors run on the 1-D "model" mesh:
+        # DTensor's op rules on a 2-D one cost seconds an op here
+        on = mesh if impl == "auto" else mesh["model"]
+        qkv = [sharding.distribute(t, ax, on).requires_grad_()
+               for t, ax in
+               ((q, ("batch", "seq", "heads", None)),
+                (k, ("batch", "seq", "kv_heads", None)),
+                (v, ("batch", "seq", "kv_heads", None)))]
+        o = attention.attend(*qkv, causal=causal, window=window, impl=impl)
+        cot = sharding.place_like(q, qkv[0], ("batch", "seq", "heads", None))
+        gq, gk, gv = torch.autograd.grad((o * cot).sum(), qkv)
+        out["attn"].append((whole(o), whole(gq), whole(gk), whole(gv),
+                            [str(p) for p in qkv[0].placements],
+                            [str(p) for p in qkv[1].placements]))
+
+    x = torch.arange(16.0).reshape(4, 4)
+    plain = sharding.shard(x, "batch", None)
+    dx = sharding.distribute(x, (None, None), mesh)
+    with sharding.use_mesh(mesh):
+        moved = sharding.shard(dx, "batch", None)
+    out["shard"] = (plain is x, sharding.shard(dx, "batch", None) is dx,
+                    [str(p) for p in moved.placements],
+                    whole(moved).tolist(), moved.to_local().tolist())
+    try:
+        mesh_mod.make_production_mesh()
+        out["production"] = None
+    except ValueError as e:
+        out["production"] = str(e)
+    return out
+

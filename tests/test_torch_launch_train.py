@@ -6,8 +6,9 @@
   step before and gives the first run's losses bit for bit from there.
 * The checkpoint holds (params, AdamW state) in the reference's layout:
   the params in the config's dtype, fp32 master and moments, the step.
-* ``--mesh pod256|pod512`` raises, naming the missing sharding (A18b); the
-  default device is CUDA, which raises here.
+* ``--mesh pod256|pod512`` raises on one process: the production mesh
+  needs a process group of 256 / 512 ranks; the default device is CUDA,
+  which raises here.
 * An MoE arch trains under the 1 × 1 mesh through the expert-parallel path,
   as the reference's launcher does.
 """
@@ -69,7 +70,7 @@ def test_moe_trains_through_the_ep_path(monkeypatch):
 
 
 def test_production_meshes_and_default_device_raise():
-    with pytest.raises(NotImplementedError, match="A18b"):
+    with pytest.raises(RuntimeError, match="a process group of 256 ranks"):
         _main("mamba2-780m", 1, ["--mesh", "pod256"])
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")

@@ -184,19 +184,35 @@ def test_prefill_then_decode_matches_forward(pair):
 
 
 def test_apply_moe_ep_raises_naming_a18():
-    """Expert parallelism runs over a mesh of ranks (A18a); what still
-    waits, gradients through its collectives (A18b), raises naming it."""
-    from torch.distributed.device_mesh import DeviceMesh
+    """What this test once held, a raise under autograd naming A18 (its
+    collectives carried no gradient), is gone: `apply_moe_ep` carries
+    gradients. On one rank (the 1 × 1 mesh, no process group) at a no-drop
+    capacity its y and its gradients of x and of every weight equal
+    `apply_moe`'s."""
+    import dataclasses
+    from repro_torch.launch.mesh import make_cpu_mesh
     from repro_torch.models import moe
-    cfg = get_config("olmoe-1b-7b").reduced()
-    p = {k: torch.zeros(s.shape, requires_grad=True)
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(),
+                              capacity_factor=64.0)
+    gen = torch.Generator().manual_seed(0)
+    p = {k: torch.randn(s.shape, generator=gen) * 0.02
          for k, s in moe.moe_schema(cfg).items()}
-    mesh = DeviceMesh("cpu", torch.arange(2).reshape(1, 2),
-                      mesh_dim_names=("data", "model"), _init_backend=False,
-                      _rank=0)
-    with pytest.raises(NotImplementedError, match="A18"):
-        moe.apply_moe_ep(cfg, p, torch.zeros((1, 2, cfg.d_model)),
-                         mesh=mesh, batch_axes=("data",))
+    x = torch.randn((2, 8, cfg.d_model), generator=gen)
+    w = torch.randn((2, 8, cfg.d_model), generator=gen)
+
+    def grads(fn):
+        ps = {k: v.clone().requires_grad_() for k, v in p.items()}
+        xs = x.clone().requires_grad_()
+        y, aux = fn(ps, xs)
+        return y, torch.autograd.grad((y * w).sum() + aux,
+                                      [xs, *ps.values()])
+    y_ep, g_ep = grads(lambda ps, xs: moe.apply_moe_ep(
+        cfg, ps, xs, mesh=make_cpu_mesh(), batch_axes=("data",)))
+    y, g = grads(lambda ps, xs: moe.apply_moe(cfg, ps, xs))
+    torch.testing.assert_close(y_ep, y, atol=1e-6, rtol=0)
+    for a, b in zip(g_ep, g):
+        assert b.abs().max() > 0
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
 
 
 def test_sliding_window_ring_cache_matches_reference():

@@ -7,8 +7,8 @@ the CPU.
   dtype and in bfloat16, the names, shapes and dtypes of JAX's
   `abstract_params`, as tensors on the ``meta`` device (nothing
   allocated).
-* `input_specs`: the names, shapes and dtypes of JAX's abstract
-  `input_specs` for every config and shape.
+* `input_specs`: the names, shapes, dtypes and logical axes of JAX's
+  abstract `input_specs` for every config and shape.
 * ``remat=True``: the forward's logits and aux loss bit-equal to
   ``remat=False`` and the parameters' gradients equal, on reduced dense,
   MoE, hybrid and audio models (float32, one thread); `unroll_scans`
@@ -68,9 +68,11 @@ def test_input_specs_are_the_reference_shapes():
     for arch in list_archs():
         cfg, jcfg = get_config(arch), jget_config(arch)
         for shape in shapes.SHAPES.values():
-            want, _ = JM.input_specs(jcfg, jshapes.SHAPES[shape.name])
-            assert _flat(M.input_specs(cfg, shape)) == \
+            want, want_axes = JM.input_specs(jcfg, jshapes.SHAPES[shape.name])
+            got, axes = M.input_specs(cfg, shape)
+            assert _flat(got) == \
                 {(k,): v for (k,), v in _jflat(want).items()}, (arch, shape)
+            assert axes == want_axes, (arch, shape)
 
 
 def test_shapes_are_the_reference_shapes():

@@ -37,7 +37,13 @@ Phases, each of which fails the run on any mismatch:
                 (4 x 2,304) and decode step (64 / 8 heads of 128); those of
                 the two models are timed too; and at a scheduler's shapes
                 (phases 7e-7g): prefill buckets of 1 and 8 rows of 16
-                tokens, a decode over 32 slots with idle ones at pos 0
+                tokens, a decode over 32 slots with idle ones at pos 0;
+                `decode_attention_lse` (bf16, main shape and head_dims 64,
+                80, 120, a row at pos -1): o `torch.equal` to
+                `decode_attention`'s, lse within 1e-3 of its plain version,
+                and T cut into 2 and 4 blocks merged by `merge_partials`
+                against the whole-cache call (per-row gate); both entries'
+                ms a call printed
   4. decision   a 4096-tenant mixed fleet runs 16 rounds on the card; from
                 its state one `_tenant_act` runs on the card (kernels) and
                 on the CPU (plain versions) with the same keys; the CPU's
@@ -242,6 +248,25 @@ Phases, each of which fails the run on any mismatch:
                 `ssd_chunk` launched 2 x layers a step under `local_map`,
                 losses within 1e-5 of phases 27-28's plain-tensor steps
                 (printed: whether bit-equal, s/step, peak GB)
+ 35. serve-sharded  StarCoder2-7B at full width and Mamba2-780M whole on
+                the same kind of one-rank (1, 1) CUDA mesh: a 4 x 2,048
+                `prefill` and 16 `decode_step`s at each row's pos, params
+                DTensors placed by `param_axes` and the cache by
+                `decode_cache_axes`, against the same model on plain
+                tensors from the same weights and tokens: logits within
+                2e-5 (tests/test_torch_engine.py's tolerance; printed:
+                whether bit-equal, ms a step, peak GB); launches gated: 32
+                `flash_attention` a StarCoder2 prefill and 32
+                `decode_attention` a step, 48 `ssd_chunk` a Mamba2 prefill
+ 36. dryrun     `repro_torch.launch.dryrun.run_case` on the pod256 mesh
+                (rank 0 of a fake process group of 256, meta DTensors: no
+                card) for one arch a family (StarCoder2-7B, Mamba2-780M,
+                OLMoE-1B-7B, Zamba2-2.7B, Whisper-large-v3, Qwen2-VL-72B)
+                at train_4k, prefill_32k and decode_32k: every case must
+                give a record with FLOPs > 0 (printed: global FLOPs, a
+                chip's, collective bytes, seconds). It runs in a
+                subprocess started before phase 1, beside the card phases,
+                and is collected here
 
 Phases 30-33 write their checkpoints under `tempfile.mkdtemp()` and remove
 them, on failure too.
@@ -349,6 +374,15 @@ MOE_EP_ATOL = 1e-5               # the reference test's bound
 # its largest reference entry (fp32, TF32 off, sums in another order)
 MOE_EP_GRAD_RTOL = 1e-5
 SHARDED_STEPS = 3                # AdamW steps a model (phase 34)
+SERVE_SHARDED = (4, 2048)        # prompt rows, tokens (phase 35)
+SERVE_SHARDED_STEPS = 16         # decode steps after the prefill (35)
+SERVE_LOGIT_TOL = 2e-5           # tests/test_torch_engine.py's LOGIT_TOL
+LSE_ATOL = 1e-3                  # decode_attention_lse's lse (phase 3)
+LSE_SPLITS = (2, 4)              # blocks of T the split-and-merge cuts (3)
+DRYRUN_ARCHS = ("starcoder2-7b", "mamba2-780m", "olmoe-1b-7b",
+                "zamba2-2.7b", "whisper-large-v3", "qwen2-vl-72b")
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")   # phase 36
+DRYRUN_THREADS = 2               # its subprocess's CPU threads
 TRAIN_LOSS_RTOL = 1e-5           # tests/test_torch_train.py's loss bound
 DIST_LABEL = ("2 ranks on one H100 over gloo (host copies): a function "
               "check, not a speed figure")
@@ -1660,8 +1694,100 @@ def phase_attention_kernels(ops, dev):
     print(f"decode_attention per-row check: worst ratio {worst_row:.3g} "
           "(gate 1)", flush=True)
     results["decode_attention"] = dict(max_abs_err=worst, **main,
-                                       shapes=shapes)
+                                       shapes=shapes,
+                                       lse=decode_lse_check(ops, dev, rnd))
     return results
+
+
+def decode_lse_check(ops, dev, rnd) -> dict:
+    """Phase 3's log-sum-exp entry, in bf16 with per-row pos and a row at
+    pos -1: `decode_attention_lse` at the main decode shape (8 x 4,096,
+    36/4 x 128) and at head_dims 64, 80 and 120. Its o must be
+    `torch.equal` to `decode_attention`'s (the same kernel, one more
+    output), its lse within LSE_ATOL of `decode_attention_lse_plain`'s (and
+    -inf where that is); then T cut into m = 2 and 4 blocks (one wholly
+    past some rows' pos), the kernel on each at its local pos and
+    `merge_partials` without a group must meet the whole-cache call under
+    the per-(row, head) gate. Returns the main shape's numbers."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
+    bf16 = torch.bfloat16
+    main_pos = [-1, 1110, 1120, 1130, 3040, 3041, 3047, 3055]
+    ring = [100, 4095, 4200, 9000, -1, 0, 2047, 5000]
+    whisper_pos = [3, 67, 130, 200, 227, 300, 447, -1]
+    cases = [("main", 8, 4096, 36, 4, 128, main_pos),
+             ("hd64", 8, 448, 20, 20, 64, whisper_pos),
+             ("hd80", 8, 4096, 32, 32, 80, ring),
+             ("hd120", 8, 4096, 32, 8, 120, ring)]
+    numbers, worst_lse, worst_row = {}, 0.0, 0.0
+    for label, b, t, h, kv, hd, pos in cases:
+        q = rnd((b, 1, h, hd), bf16)
+        k, v = rnd((b, t, kv, hd), bf16), rnd((b, t, kv, hd), bf16)
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+        whole = ops.decode_attention(q, k, v, pos_t)
+        o, lse = ops.decode_attention_lse(q, k, v, pos_t)
+        _, lse_plain = dec.decode_attention_lse_plain(q, k, v, pos_t)
+        torch.cuda.synchronize()
+        if not torch.equal(o, whole):
+            fail(f"decode_attention_lse {label}: o is not decode_attention's")
+        if not torch.equal(torch.isneginf(lse), torch.isneginf(lse_plain)):
+            fail(f"decode_attention_lse {label}: -inf rows differ")
+        fin = torch.isfinite(lse_plain)
+        err = (lse[fin] - lse_plain[fin]).abs().max().item()
+        worst_lse = max(worst_lse, err)
+        if not err <= LSE_ATOL:
+            fail(f"decode_attention_lse {label}: lse max|diff| {err}")
+        last = torch.clamp(pos_t, max=t - 1)
+        ratios = []
+        for m in LSE_SPLITS:
+            t_l = t // m
+            parts = [ops.decode_attention_lse(
+                q, k[:, r * t_l:(r + 1) * t_l].contiguous(),
+                v[:, r * t_l:(r + 1) * t_l].contiguous(),
+                (last - r * t_l).clamp(-1, t_l - 1)) for r in range(m)]
+            merged = dec.merge_partials(torch.stack([x[0] for x in parts]),
+                                        torch.stack([x[1] for x in parts]))
+            past = sum(bool(((last >= 0) & (last < r * t_l)).any())
+                       for r in range(m))
+            if not past:
+                fail(f"decode_attention_lse {label} m={m}: no block lies "
+                     "wholly past a row's pos")
+            ratio = fa.row_error_ratio(merged, whole, ROW_RTOL, ROW_ATOL)
+            ratios.append(ratio)
+            if not ratio <= 1:
+                fail(f"decode_attention_lse {label} m={m}: the merged blocks "
+                     f"are {ratio:.3g} x the per-row tolerance from the "
+                     "whole-cache call")
+        worst_row = max([worst_row] + ratios)
+        print(f"decode_attention_lse {label:5s} B={b} T={t} H={h} KV={kv} "
+              f"hd={hd} pos={pos}: o torch.equal decode_attention's, lse "
+              f"max|diff|={err:.3g} (bound {LSE_ATOL}); split into "
+              f"{'/'.join(map(str, LSE_SPLITS))} blocks and merged: row "
+              f"ratio {' / '.join(f'{x:.3g}' for x in ratios)} (gate 1)",
+              flush=True)
+        if label != "main":
+            continue
+
+        def plain_call():
+            return ops.decode_attention(q, k, v, pos_t)
+
+        def lse_call():
+            return ops.decode_attention_lse(q, k, v, pos_t)
+        ms, lse_ms = cuda_ms(plain_call, iters=100), cuda_ms(lse_call,
+                                                              iters=100)
+        dev_ms, lse_dev_ms = graph_ms(plain_call), graph_ms(lse_call)
+        plain_ms = cuda_ms(lambda: dec.decode_attention_lse_plain(
+            q, k, v, pos_t))
+        nbytes, flops = decode_cost(q, k, pos_t)
+        b_ms, b_by = bound(nbytes + 4.0 * b * h, flops, BF16_OPS_PER_S)
+        numbers = dict(ms=lse_ms, graph_ms=lse_dev_ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by)
+        print(f"decode_attention_lse main: {lse_ms:.4f} ms one by one, "
+              f"{lse_dev_ms:.4f} ms from a CUDA graph; decode_attention "
+              f"{ms:.4f} / {dev_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+              f"{b_ms:.5f} ms ({b_by}) [{card_line()}]", flush=True)
+    numbers.update(max_abs_err=worst_lse, worst_row_ratio=worst_row)
+    return numbers
 
 
 def flash_pad_route(ops, fa, q, k, v, window) -> None:
@@ -2972,6 +3098,186 @@ def phase_train_sharded(ops, dev, dense_losses: list,
     return launches
 
 
+def sharded_serve(ops, dev, arch: str, tag: str, kernels: dict,
+                  layers: Optional[int] = None) -> dict:
+    """Phase 35 for one model at full width on the current one-rank mesh:
+    a SERVE_SHARDED prefill, then SERVE_SHARDED_STEPS decode steps at each
+    row's pos, first on plain tensors, then with the params DTensors placed
+    by `param_axes` and the cache DTensors placed by `decode_cache_axes`,
+    from the same weights and tokens; the sharded run's logits against the
+    plain run's (SERVE_LOGIT_TOL), and its launches a prefill (``kernels``)
+    and a decode step (one `decode_attention` an attention layer)."""
+    from repro_torch import sharding
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt
+    torch.cuda.empty_cache()
+    cfg, params = full_width(arch, dev, tag, layers)
+    b, s = SERVE_SHARDED
+    steps = SERVE_SHARDED_STEPS
+    gen = torch.Generator(device=dev).manual_seed(35)
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    step_toks = torch.randint(0, cfg.vocab, (steps, b, 1), generator=gen,
+                              device=dev)
+    pos0 = torch.full((b,), s, dtype=torch.int32, device=dev)
+
+    def serve(p):
+        with torch.no_grad():
+            ops.reset_launches()
+            last, cache = M.prefill(cfg, p, {"tokens": toks}, s + steps,
+                                    device=dev)
+            torch.cuda.synchronize()
+            pre = dict(ops.LAUNCHES)
+            logits, secs = [last], []
+            ops.reset_launches()
+            for i in range(steps):
+                t0 = time.perf_counter()
+                lg, cache = M.decode_step(cfg, p, step_toks[i], cache,
+                                          pos0 + i, device=dev)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                logits.append(lg[:, 0])
+            dec = dict(ops.LAUNCHES)
+        whole = [x.full_tensor() if sharding.is_dtensor(x) else x
+                 for x in logits]
+        placed = all(sharding.is_dtensor(t) for t in opt.tree_leaves(cache))
+        return whole, pre, dec, secs, placed
+
+    plain, _, _, plain_secs, _ = serve(params)
+    mesh = sharding.current_mesh()
+    dparams = sharding.distribute_tree(params, M.param_axes(cfg), mesh)
+    torch.cuda.reset_peak_memory_stats()
+    got, pre, dec, secs, placed = serve(dparams)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    err = max((a.float() - w.float()).abs().max().item()
+              for a, w in zip(got, plain))
+    bit = all(torch.equal(a, w) for a, w in zip(got, plain))
+    n_attn = {"ssm": 0}.get(cfg.family, cfg.n_layers)
+    want_dec = {"decode_attention": n_attn * steps} if n_attn else {}
+    ms = 1e3 * float(np.median(secs[1:]))
+    plain_ms = 1e3 * float(np.median(plain_secs[1:]))
+    print(f"{tag}: {cfg.name} on a 1 x 1 ('data', 'model') CUDA mesh "
+          f"(one-rank NCCL group), params DTensors (param_axes), cache "
+          f"DTensors (decode_cache_axes): a {b} x {s} prefill then {steps} "
+          f"decode steps; logits max|diff| {err:.3g} against the plain "
+          f"run's (bound {SERVE_LOGIT_TOL}; bit-equal {bit}); launches a "
+          f"prefill {pre}, over the steps {dec}; {ms:.3f} ms a step "
+          f"(median of steps 2..{steps}; plain tensors {plain_ms:.3f}), peak "
+          f"{peak:.2f} GB [{card_line()}]", flush=True)
+    for name, n in kernels.items():
+        if pre.get(name) != n:
+            fail(f"{tag}: {pre.get(name)} {name} launches a prefill, want "
+                 f"{n}")
+    for name, n in want_dec.items():
+        if dec.get(name) != n:
+            fail(f"{tag}: {dec.get(name)} {name} launches over {steps} "
+                 f"steps, want {n}")
+    if not placed:
+        fail(f"{tag}: a cache leaf left its mesh")
+    if not err <= SERVE_LOGIT_TOL:
+        fail(f"{tag}: the sharded logits part from the plain ones")
+    del params, dparams
+    torch.cuda.empty_cache()
+    return {**pre, **{k: pre.get(k, 0) + v for k, v in dec.items()}}
+
+
+def phase_serve_sharded(ops, dev) -> dict:
+    """Phase 35: StarCoder2-7B at full width and Mamba2-780M whole served
+    (`prefill`, `decode_step`) on a one-rank NCCL group's (1, 1) CUDA mesh
+    with DTensor params and cache, held to the same models on plain
+    tensors."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_cpu_mesh
+    from repro_torch.sharding import use_mesh
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-nccl-")
+    try:
+        one_rank_group(tmp)
+        with use_mesh(make_cpu_mesh()):        # (1, 1) on "cuda" over NCCL
+            launches = sharded_serve(ops, dev, SERVE_ARCH, "serve-sharded",
+                                     {"flash_attention": 32})
+            for k, v in sharded_serve(ops, dev, SSM_ARCH,
+                                      "serve-ssm-sharded",
+                                      {"ssd_chunk": 48}).items():
+                launches[k] = launches.get(k, 0) + v
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+DRYRUN_SCRIPT = r"""
+import json, sys, time
+import torch
+torch.set_num_threads(int(sys.argv[2]))
+from repro_torch.launch import dryrun as D
+with D.fake_group(256):
+    for arch, shape in json.loads(sys.argv[1]):
+        t0 = time.perf_counter()
+        try:
+            r = D.run_case(arch, shape, save=False, verbose=False)
+            out = {"arch": arch, "shape": shape, "ok": True,
+                   "flops_global": r["flops_global"], "flops": r["flops"],
+                   "collective_bytes": r["collective_bytes"],
+                   "counts": r["collective_counts"],
+                   "argument_bytes": r["memory"]["argument_bytes"],
+                   "peak_bytes": r["memory"]["peak_bytes"]}
+        except Exception as e:
+            out = {"arch": arch, "shape": shape, "ok": False,
+                   "error": repr(e)[:600]}
+        out["s"] = time.perf_counter() - t0
+        print(json.dumps(out), flush=True)
+"""
+
+
+def start_dryrun() -> subprocess.Popen:
+    """Phase 36's dry run, started at once in a subprocess on the CPU
+    (rank 0 of a fake process group of 256, meta DTensors: it touches no
+    card and is kept from it), DRYRUN_THREADS threads, while the card
+    phases run; `phase_dryrun` collects it. It is killed at exit if still
+    running."""
+    import atexit
+    cases = [(a, s) for a in DRYRUN_ARCHS for s in DRYRUN_SHAPES]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")]
+                   + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+    proc = subprocess.Popen([sys.executable, "-c", DRYRUN_SCRIPT,
+                             json.dumps(cases), str(DRYRUN_THREADS)],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def phase_dryrun(proc: subprocess.Popen) -> None:
+    """Phase 36: the dry run's records (`launch.dryrun.run_case` on the
+    pod256 mesh, one arch a family at train_4k, prefill_32k and
+    decode_32k); every case must give a record with FLOPs > 0."""
+    out, err = proc.communicate(timeout=900)
+    recs = [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+    for r in recs:
+        if not r["ok"]:
+            print(f"dryrun: FAIL {r['arch']} x {r['shape']}: {r['error']}",
+                  flush=True)
+            continue
+        print(f"dryrun: {r['arch']} x {r['shape']} [pod256]: flops_global "
+              f"{r['flops_global']:.6g}, flops a chip {r['flops']:.6g}, "
+              f"collective bytes {r['collective_bytes']:.6g} "
+              f"{r['counts']}, argument bytes a chip "
+              f"{r['argument_bytes']:.6g}, peak {r['peak_bytes']:.6g}; "
+              f"{r['s']:.1f} s", flush=True)
+    want = len(DRYRUN_ARCHS) * len(DRYRUN_SHAPES)
+    if proc.returncode != 0 or len(recs) != want:
+        fail(f"dryrun: exited {proc.returncode} after {len(recs)} of {want} "
+             f"cases: {err[-2000:]}")
+    bad = [f"{r['arch']} x {r['shape']}" for r in recs
+           if not (r["ok"] and r["flops_global"] > 0 and r["flops"] > 0)]
+    if bad:
+        fail(f"dryrun: no record with FLOPs > 0 for {bad}")
+    print(f"dryrun: {want} cases on torch {torch.__version__}, "
+          f"{sum(r['s'] for r in recs):.1f} s in all", flush=True)
+
+
 def stamp(t_start: float, phases: str) -> None:
     """The run's elapsed seconds at the end of ``phases``."""
     print(f"time: {time.perf_counter() - t_start:.1f} s after phases "
@@ -2993,6 +3299,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    dryrun = start_dryrun()
     phase_card()
     phase_build(ops)
     measured = phase_kernels(ops, topn, awc, dev)
@@ -3103,6 +3410,13 @@ def main() -> None:
         if n == 0:
             fail(f"{name} never launched on the sharded training path")
     stamp(t_start, "34")
+    served = phase_serve_sharded(ops, dev)
+    for name in ("flash_attention", "decode_attention", "ssd_chunk"):
+        if not served.get(name):
+            fail(f"{name} never launched on the sharded serving path")
+    stamp(t_start, "35")
+    phase_dryrun(dryrun)
+    stamp(t_start, "36")
 
     kernels = []
     for name, mod in ops.KERNELS.items():

@@ -6,12 +6,13 @@ import torch
 
 def resolve_device(device="cuda") -> torch.device:
     """``device`` as a `torch.device`; raises if it names CUDA and no CUDA
-    device is present. There is no fallback to the CPU."""
+    device is present. There is no fallback to the CPU. The ``meta`` device
+    (shapes only: the dry run, `launch.dryrun`) is taken as it is."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {str(dev)!r} requested but no CUDA device "
                            "is available; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {str(dev)!r}")
     if dev.type == "cuda" and dev.index is None:
         # the device tensors report, so comparisons with theirs hold

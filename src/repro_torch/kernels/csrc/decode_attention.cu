@@ -28,6 +28,13 @@
 // head, in the call's scratch, zeroed by the launch) or by
 // `decode_merge_kernel` (fp32).
 //
+// When the caller passes an `lse` buffer (B, H) fp32, each (row, head) also
+// gets the log-sum-exp of its scaled scores over the slots it read, m + log
+// l in the natural base, or -inf for a row with no slot at all. The output
+// is computed as without it: the buffer only adds stores. A caller that
+// splits T over devices runs the kernel on each block with a local pos and
+// combines the blocks' outputs by their lse.
+//
 // bf16 (`decode_attention_mma_kernel`): the two products run on the tensor
 // cores with mma.sync.m16n8k16 (bf16 in, fp32 accumulate). The KV head's
 // n_rep query heads are the M rows (rows n_rep..15 are zero; two M tiles
@@ -77,6 +84,7 @@ constexpr int kStages = 3;      // bf16 kernel: tiles in the ring
 constexpr int kWarpSlots = kBK / kWarps;   // a warp's slots of a tile
 constexpr int kMaxSplits = 64;  // bf16: splits of T the last block merges
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -96,7 +104,18 @@ struct Args {
   float scale;
   int split_tiles;        // tiles of 64 slots per split of T
   int* count;             // bf16: (B, KV) splits finished, zeroed per launch
+  float* lse;             // (B, H) log-sum-exp of the scores, or null
 };
+
+// log-sum-exp of (row b, KV head kvh, query head hh of its group): m + log
+// l, m in base 2 when `base2`; -inf when no slot was read (l == 0)
+__device__ __forceinline__ void store_lse(const Args& a, int b, int kvh,
+                                          int hh, float m, float l,
+                                          bool base2) {
+  if (a.lse == nullptr) return;
+  a.lse[((long long)b * a.kv + kvh) * a.n_rep + hh] =
+      l > 0.f ? (base2 ? m * kLn2 : m) + logf(l) : -INFINITY;
+}
 
 size_t smem_floats(int hd, int n_rep) {
   return (size_t)n_rep * hd          // q   [n_rep][hd]
@@ -265,6 +284,8 @@ decode_attention_kernel(Args a) {
         store(obase + hh * a.oh + d, acc[r] / fmaxf(ls[hh], 1e-30f));
       }
     }
+    for (int hh = tid; hh < n_rep; hh += kThreads)
+      store_lse(a, b, kvh, hh, ms[hh], ls[hh], false);
     return;
   }
   // partials of this split; an empty split (past the row's pos) has
@@ -409,9 +430,12 @@ decode_attention_mma_kernel(Args a) {
   if (n_tiles <= 0) {
     // past the row's pos: nothing to merge from this split; a row with no
     // slot at all gets zeros from its first split
-    if (last < 0 && split == 0)
+    if (last < 0 && split == 0) {
       for (int i = threadIdx.x; i < n_rep * HD; i += kThreads)
         obase[(i / HD) * a.oh + i % HD] = __float2bfloat16(0.f);
+      for (int i = threadIdx.x; i < n_rep; i += kThreads)
+        store_lse(a, b, kvh, i, 0.f, 0.f, true);
+    }
     return;
   }
 
@@ -637,6 +661,7 @@ decode_attention_mma_kernel(Args a) {
     }
     if (used == 1) {
       obase[row * a.oh + d] = __float2bfloat16(acc / fmaxf(lsum, 1e-30f));
+      if (d == 0) store_lse(a, b, kvh, row, mx, lsum, true);
     } else {
       acc_row[((long long)split * n_rep + row) * HD + d] = acc;
       if (d == 0)
@@ -678,6 +703,7 @@ decode_attention_mma_kernel(Args a) {
       lsum = fmaf(e, lsp[sp * n_rep + row], lsum);
     }
     inv_l[row] = 1.f / fmaxf(lsum, 1e-30f);
+    store_lse(a, b, kvh, row, mx, lsum, true);
   }
   __syncthreads();
   constexpr int kQuads = HD / 4;                  // 4-float groups in a row
@@ -745,6 +771,7 @@ __global__ void __launch_bounds__(HD) decode_merge_kernel(Args a,
   }
   T* out = static_cast<T*>(a.o) + b * a.ob + head * a.oh;
   store(out + d, o / fmaxf(l, 1e-30f));
+  if (d == 0) store_lse(a, b, kvh, hh, m, l, false);
 }
 
 template <int HD>
@@ -790,13 +817,15 @@ int launch_mma(const Args& a, int b, int n_split, cudaStream_t stream) {
 // `count` b * kv ints of scratch, zeroed here with cudaMemsetAsync on
 // `stream` (so a launch owns its counters, on any stream and under CUDA
 // graph capture). The
-// output's rows must be 8-byte aligned (oh a multiple of 4).
+// output's rows must be 8-byte aligned (oh a multiple of 4). `lse`, when not
+// null, is a contiguous (B, H) fp32 buffer for each (row, head)'s
+// log-sum-exp.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* pos, void* o,
-    void* part, void* count, int dtype, int b, int t, int h, int kv, int hd,
-    int split_tiles, int n_split, long long qb, long long qh, long long kb,
-    long long ks, long long kh, long long vb, long long vs, long long vh,
-    long long ob, long long oh, void* stream) {
+    void* part, void* count, void* lse, int dtype, int b, int t, int h,
+    int kv, int hd, int split_tiles, int n_split, long long qb, long long qh,
+    long long kb, long long ks, long long kh, long long vb, long long vs,
+    long long vh, long long ob, long long oh, void* stream) {
   if (b <= 0 || t <= 0 || kv <= 0 || h % kv != 0 || b > 65535 ||
       (long long)(h / kv) * hd > (long long)kMaxOut * kThreads)
     return (int)cudaErrorInvalidValue;
@@ -810,7 +839,7 @@ extern "C" int decode_attention_launch(
     return (int)cudaErrorInvalidValue;
   Args a{q, k, v, (const int*)pos, o, (float*)part, t, kv, h / kv, qb, qh,
          kb, ks, kh, vb, vs, vh, ob, oh, 1.0f / sqrtf((float)hd),
-         split_tiles, (int*)count};
+         split_tiles, (int*)count, (float*)lse};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
     switch (hd) {

@@ -39,6 +39,14 @@ A sliding-window ring cache (slot = pos % T) needs no mask of its own: its
 valid slots, age < min(pos + 1, T), are the slots <= min(pos, T - 1) the
 kernel reads, and the softmax does not depend on slot order, so the caller
 passes the raw pos.
+
+`decode_attention_cuda(..., lse=True)` also returns each (row, head)'s
+log-sum-exp of its scaled scores, (B, H) fp32 (-inf for a row with no
+slot), from the same launch: the kernel writes it beside the output, which
+it computes as without it. `decode_attention_lse_plain` is its plain
+version. A cache split over devices along T ("cache_seq") runs the kernel
+on each block and combines the blocks' outputs by their lse
+(`merge_partials`).
 """
 from __future__ import annotations
 
@@ -56,7 +64,7 @@ NAME = "decode_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 REPLACES = "src/repro/kernels/decode_attention.py:67"
 ENTRY = "decode_attention_launch"
-ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
             + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
 HEAD_DIMS = (64, 80, 120, 128)   # all built, no pad route
 MAX_OUT = 2048          # n_rep · hd a block's threads hold
@@ -100,24 +108,84 @@ def row_positions(pos, b: int, device) -> torch.Tensor:
     return p.to(torch.int32).expand(b).contiguous()
 
 
-def decode_attention_plain(q, k, v, pos):
-    """Plain PyTorch version (port of `repro.kernels.ref.decode_attention`):
-    q (B,1,H,hd); cache k/v (B,T,KV,hd); pos scalar or (B,)."""
+def _masked_scores(q, k, pos):
+    """fp32 scaled scores (B, H, 1, T) with slots past pos at -1e30, and
+    the (B, T) validity mask."""
     b, _, h, hd = q.shape
     t = k.shape[1]
     k = repeat_kv(k, h // k.shape[2])
-    v = repeat_kv(v, h // v.shape[2])
     sc = torch.einsum("bshk,bthk->bhst", q.float(), k.float()) / math.sqrt(hd)
     pos_r = row_positions(pos, b, q.device)
     valid = torch.arange(t, device=q.device)[None, :] <= pos_r[:, None]
     sc = torch.where(valid[:, None, None, :], sc, torch.full_like(sc, NEG_INF))
+    return sc, valid
+
+
+def _attend(q, v, sc):
     w = torch.softmax(sc, dim=-1)
+    v = repeat_kv(v, q.shape[2] // v.shape[2])
     return torch.einsum("bhst,bthk->bshk", w, v.float()).to(q.dtype)
 
 
-def decode_attention_cuda(lib, q, k, v, pos):
+def decode_attention_plain(q, k, v, pos):
+    """Plain PyTorch version (port of `repro.kernels.ref.decode_attention`):
+    q (B,1,H,hd); cache k/v (B,T,KV,hd); pos scalar or (B,)."""
+    return _attend(q, v, _masked_scores(q, k, pos)[0])
+
+
+def decode_attention_lse_plain(q, k, v, pos):
+    """`decode_attention_plain`'s output and each (row, head)'s log-sum-exp
+    of its valid scaled scores, (B, H) fp32: -inf for a row with no valid
+    slot, whose output (the mean of v, from the softmax over -1e30 scores)
+    then weighs nothing beside a block that has one (`merge_partials`)."""
+    sc, valid = _masked_scores(q, k, pos)
+    lse = torch.logsumexp(torch.where(valid[:, None, :], sc[:, :, 0],
+                                      torch.full_like(sc[:, :, 0],
+                                                      -math.inf)), -1)
+    return _attend(q, v, sc), lse
+
+
+def merge_partials(o, lse, group=None):
+    """Combine the outputs of attention over blocks of a cache's slots by
+    their log-sum-exps: o (..., B, 1, H, hd), lse (..., B, H) fp32, each
+    block's softmax output and log-sum-exp. Without ``group`` the blocks
+    are the leading dim of ``o`` and ``lse``; with one (a process group, or
+    a mesh and its dim as `torch.distributed._functional_collectives`
+    takes it) each rank holds one block, and an all-reduce of the max and
+    two of sums combine them (every rank gets the result). Returns (B, 1,
+    H, hd) in ``o``'s dtype: sum_r exp(lse_r - M) o_r / sum_r exp(lse_r -
+    M), M the max. A block with lse -inf weighs nothing; when every block
+    has -inf (a row with no valid slot anywhere) the result is the plain
+    mean of the blocks' outputs, which is what one call over the whole
+    cache gives: zeros from the kernel (zeros each block), the mean of v
+    from the plain version (the mean of each equal block's)."""
+    lse = lse.float()
+    if group is None:
+        m = lse.amax(0)
+    else:
+        m = _all_reduce(lse, "max", group)
+    none = torch.isneginf(m)
+    w = torch.exp(lse - torch.where(none, torch.zeros_like(m), m))
+    w = torch.where(none, torch.ones_like(w), w)       # (..., B, H)
+    num = w[..., None, :, None] * o.float()
+    if group is None:
+        num, den = num.sum(0), w.sum(0)
+    else:
+        num, den = (_all_reduce(num, "sum", group),
+                    _all_reduce(w, "sum", group))
+    return (num / den[:, None, :, None]).to(o.dtype)
+
+
+def _all_reduce(t, op: str, group):
+    from torch.distributed import _functional_collectives as funcol
+    return funcol.wait_tensor(funcol.all_reduce(t, op, group))
+
+
+def decode_attention_cuda(lib, q, k, v, pos, *, lse: bool = False):
     """Launch the kernel on the current stream: q (B,1,H,hd), cache k/v
-    (B,T,KV,hd) contiguous CUDA tensors of one dtype, pos scalar or (B,)."""
+    (B,T,KV,hd) contiguous CUDA tensors of one dtype, pos scalar or (B,).
+    Returns the output, and with ``lse`` (output, (B, H) fp32 log-sum-exp)
+    from the same launch."""
     check_qkv(NAME, q, k, v, HEAD_DIMS)
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
@@ -135,8 +203,10 @@ def decode_attention_cuda(lib, q, k, v, pos):
     else:
         pos_r = row_positions(pos, b, q.device)
     out = torch.empty_like(q)
+    lse_out = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+               if lse else None)
     if b == 0:
-        return out
+        return (out, lse_out) if lse else out
     per, splits = split_plan(t, b * kv, q.dtype, _sm_count(q.device.index))
     part = count = None
     if splits > 1:
@@ -150,10 +220,12 @@ def decode_attention_cuda(lib, q, k, v, pos):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_r.data_ptr(),
-        out.data_ptr(), part, count, DTYPE_CODES[q.dtype], b, t, h, kv, hd,
+        out.data_ptr(), part, count,
+        lse_out.data_ptr() if lse else None, DTYPE_CODES[q.dtype], b, t, h,
+        kv, hd,
         per, splits,
         q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3],
         out.stride(0), out.stride(2), stream)
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: cudaError {err}")
-    return out
+    return (out, lse_out) if lse else out

@@ -2,7 +2,10 @@
 
 A tensor on the CPU goes to the kernel's plain PyTorch version; a tensor on
 CUDA goes to the hand-written kernel, or raises. There is no environment
-switch and no fallback: the device of the input decides.
+switch and no fallback: the device of the input decides. A tensor on the
+``meta`` device (shapes only: the dry run, `launch.dryrun`) takes the
+model kernels' plain versions too, which compute nothing there; the fleet
+kernels (`topn_lp`, `awc_fw`), which no dry run reaches, raise on it.
 
 The kernels are CUDA C++ with a plain C interface (`csrc/*.cu`), compiled
 by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
@@ -11,7 +14,8 @@ by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 name carries a hash of its source, so an edited source is rebuilt.
 
 `LAUNCHES` counts, per kernel, the launches made through `topn_lp`,
-`awc_fw`, `flash_attention`, `decode_attention` and `ssd_chunk`;
+`awc_fw`, `flash_attention`, `decode_attention` (with
+`decode_attention_lse`, the same kernel) and `ssd_chunk`;
 `reset_launches` sets them to 0.
 
 Gradients: a kernel writes into a tensor of its own, which autograd cannot
@@ -33,8 +37,15 @@ None), k/v ("batch", "seq", "kv_heads", None), the SSD inputs by xh's
 and the kv heads do not, each rank gets the kv heads its own q heads read
 (q head i reads kv head i // n_rep). An input every rank of such a dim
 reads whole (k/v there, the SSD's B/C) gets a partial gradient there
-(`sharding.grad_placements`). The other kernels raise on a DTensor: none
-is gathered in silence.
+(`sharding.grad_placements`). `decode_attention` of DTensors (a cache
+placed by `models.model.decode_cache_axes`) runs under `local_map` too:
+q whole over the mesh dims that split the cache's slots ("cache_seq"),
+each rank the kernel on its own block of T with its local pos and the
+log-sum-exp output, the blocks' outputs combined by `merge_partials` over
+those dims, so the cache is never gathered (the reference's flash-decode
+sharding); a cache whose T is whole on every rank takes one plain call on
+each rank's rows and heads. `topn_lp` and `awc_fw` raise on a DTensor:
+none is gathered in silence.
 """
 from __future__ import annotations
 
@@ -62,6 +73,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+_PLAIN = ("cpu", "meta")     # devices whose tensors take the model kernels'
+#                              plain versions
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -195,7 +208,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Prefill attention: q (B,S,H,hd), k/v (B,T,KV,hd) -> (B,S,H,hd)."""
     if sharding.is_dtensor(q):
         return _flash_on_shards(q, k, v, causal=causal, window=window)
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN:
         return _fa.flash_attention_plain(q, k, v, causal=causal,
                                          window=window)
     _cuda_ready(q, "flash_attention")
@@ -213,8 +226,10 @@ def _flash_launch(q, k, v, *, causal: bool, window: Optional[int]):
 def decode_attention(q, k, v, pos):
     """One-token attention against a cache: q (B,1,H,hd), k/v (B,T,KV,hd),
     pos scalar or (B,) -> (B,1,H,hd)."""
+    if sharding.is_dtensor(k):
+        return _decode_on_shards(q, k, v, pos)
     _no_dtensor("decode_attention", q, k, v, pos)
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN:
         return _dec.decode_attention_plain(q, k, v, pos)
     _cuda_ready(q, "decode_attention")
     _no_grad("decode_attention", q, k, v)
@@ -225,12 +240,28 @@ def decode_attention(q, k, v, pos):
     return out
 
 
+def decode_attention_lse(q, k, v, pos):
+    """`decode_attention` and each (row, head)'s log-sum-exp of its scaled
+    scores over the slots it read: -> (o (B,1,H,hd), lse (B,H) fp32, -inf
+    for a row with no valid slot). One launch of the same kernel."""
+    _no_dtensor("decode_attention_lse", q, k, v, pos)
+    if q.device.type in _PLAIN:
+        return _dec.decode_attention_lse_plain(q, k, v, pos)
+    _cuda_ready(q, "decode_attention_lse")
+    _no_grad("decode_attention_lse", q, k, v)
+    out, lse = _dec.decode_attention_cuda(library("decode_attention"), q, k,
+                                          v, pos, lse=True)
+    if out.numel():                  # an empty batch launches nothing
+        LAUNCHES["decode_attention"] += 1
+    return out, lse
+
+
 def ssd_chunk(xd, acum, bm, cm):
     """Mamba2 SSD intra-chunk dual form: xd (B,NC,L,H,P), acum (B,NC,L,H),
     bm/cm (B,NC,L,N) -> (y (B,NC,L,H,P), states (B,NC,H,P,N)), fp32."""
     if sharding.is_dtensor(xd):
         return _ssd_on_shards(xd, acum, bm, cm)
-    if xd.device.type == "cpu":
+    if xd.device.type in _PLAIN:
         return _ssd.ssd_chunk_plain(xd, acum, bm, cm)
     _cuda_ready(xd, "ssd_chunk")
     return _ssd.SSDChunkFn.apply(_ssd_launch, xd, acum, bm, cm)
@@ -251,16 +282,6 @@ def _placed(x, logical) -> tuple:
                                                  mesh), mesh)
 
 
-def _split_index(mesh, pl, dim: int) -> int:
-    """This rank's block index along tensor dim ``dim`` under placements
-    ``pl`` (the mesh dims that split it, the first the major)."""
-    idx = 0
-    for i, p in enumerate(pl):
-        if p.is_shard(dim):
-            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
-    return idx
-
-
 def kv_heads_of(block: int, h_loc: int, n_rep: int):
     """The kv heads that q heads block*h_loc .. block*h_loc + h_loc - 1
     read (q head i reads kv head i // n_rep): a slice where they form
@@ -273,6 +294,28 @@ def kv_heads_of(block: int, h_loc: int, n_rep: int):
     return [(block * h_loc + i) // n_rep for i in range(h_loc)]
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: a
+    gradient leaving a `local_map` region becomes a DTensor whose later
+    views DTensor plans on the global strides, which a non-contiguous local
+    block does not have."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _contiguous_grads(*tensors):
+    if not torch.is_grad_enabled():
+        return tensors
+    return tuple(_ContiguousGrad.apply(t) if t.requires_grad else t
+                 for t in tensors)
+
+
 def _flash_on_shards(q, k, v, *, causal: bool, window: Optional[int]):
     """`flash_attention` of DTensors: each rank's q heads against the kv
     heads they read, under `local_map`."""
@@ -283,9 +326,10 @@ def _flash_on_shards(q, k, v, *, causal: bool, window: Optional[int]):
     n_rep = q.shape[2] // k.shape[2]
     gqa_split = any(a.is_shard(2) and not b.is_shard(2)
                     for a, b in zip(pq, pk))
-    block = _split_index(mesh, pq, 2)
+    block = sharding.block_index(mesh, pq, 2)
 
     def local(ql, kl, vl):
+        ql, kl, vl = _contiguous_grads(ql, kl, vl)
         if gqa_split:
             heads = kv_heads_of(block, ql.shape[2], n_rep)
             kl, vl = kl[:, :, heads], vl[:, :, heads]
@@ -295,6 +339,56 @@ def _flash_on_shards(q, k, v, *, causal: bool, window: Optional[int]):
                      in_placements=(pq, pk, pk),
                      in_grad_placements=(pq, gk, gk), device_mesh=mesh,
                      redistribute_inputs=True)(q, k, v)
+
+
+def _decode_on_shards(q, k, v, pos):
+    """`decode_attention` of a DTensor cache (k/v (B,T,KV,hd) placed by
+    the cache's axes; q and pos DTensors or whole tensors) under
+    `local_map`. q goes whole over the mesh dims that split T (all its
+    heads) and by the cache's batch and kv-head blocks elsewhere (a
+    cache's kv heads split where its T cannot be: q's heads follow in whole
+    groups). With T split, each rank runs `decode_attention_lse` on its
+    block [r·T_l, (r+1)·T_l) at local_pos = clamp(min(pos, T-1) - r·T_l,
+    -1, T_l-1), which covers the ring (the raw pos, no mask) and a frozen
+    row, and `merge_partials` combines the blocks over those mesh dims."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.kernels.decode_attention import (merge_partials,
+                                                      row_positions)
+    mesh = k.device_mesh
+    pk = tuple(k.placements)
+    t_dims = [i for i, p in enumerate(pk) if p.is_shard(1)]
+    if len(t_dims) > 1 or any(p.is_partial() or (p.is_shard() and p.dim > 2)
+                              for p in pk):
+        raise ValueError(f"decode_attention takes a cache split over its "
+                         f"batch, kv heads and over one mesh dim its slots, "
+                         f"got {pk}")
+    pq = tuple(p if p.is_shard(0) or p.is_shard(2) else Replicate()
+               for p in pk)
+    prow = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in pk)
+    b, t = k.shape[:2]
+    if not sharding.is_dtensor(pos):
+        pos = sharding.distribute(row_positions(pos, b, k.to_local().device),
+                                  (None,), mesh)
+    if not sharding.is_dtensor(q):
+        q = sharding.distribute(q, (None,) * 4, mesh)
+    if not t_dims:
+        def local(ql, kl, vl, pl):
+            return decode_attention(ql, kl, vl, pl)
+    else:
+        dim = t_dims[0]
+        group = (mesh, dim)
+        t_l = t // mesh.size(dim)
+        r = mesh.get_local_rank(dim)
+
+        def local(ql, kl, vl, pl):
+            lp = (torch.clamp(pl, max=t - 1) - r * t_l).clamp(-1, t_l - 1)
+            o, lse = decode_attention_lse(ql.contiguous(), kl, vl,
+                                          lp.to(torch.int32))
+            return merge_partials(o, lse, group)
+    return local_map(local, out_placements=list(pq),
+                     in_placements=(pq, pk, pk, prow), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v, pos)
 
 
 def _ssd_on_shards(xd, acum, bm, cm):

@@ -39,6 +39,13 @@ port calls the same `decode_attention` with pos = T - 1 for every row, and
 since the kernel reads the slots <= min(pos, T - 1), that is every slot.
 The cross K/V are formed once per prompt (`models.model.fill_cross_caches`)
 and read in place by the prefill's cross-attention and by every step.
+
+On a mesh the cache is a DTensor placed by `cache_axes` (its slots split
+over "cache_seq"). Its writes, the prefill's K/V and each step's slot, go
+through `scatter_slots`: each rank writes the slots of its own block of T
+under `local_map` (DTensor's index_put on a sharded dim is not relied on),
+and the step's attention is `ops.decode_attention` of the DTensor cache,
+which combines the blocks' partial softmaxes without gathering the cache.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import repeat_kv as _repeat_kv
 from repro_torch.models import rope as rope_mod
@@ -78,15 +86,66 @@ def attention_schema(cfg, d_model: Optional[int] = None):
     return s
 
 
-def _proj(x, w, b=None):
-    """x (B,S,D) -> (B,S,heads,hd) through w (D,heads,hd), plus b."""
-    y = einsum("bsd,dhk->bshk", x, w)
+class _MergeHeads(torch.autograd.Function):
+    """A DTensor's dims ``dim`` and ``dim + 1`` (heads and head_dim)
+    merged; the backward places the gradient as the input is placed (a
+    split of the heads is a split of the merged dim) before it unflattens
+    it, which DTensor cannot do from a split inside a head (56, 36, 20 or 8
+    heads over 16 ranks)."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int):
+        from torch.distributed.tensor import Shard
+        ctx.shape = x.shape
+        # the input's placements on the merged dims (a later dim one down)
+        ctx.placements = tuple(Shard(p.dim - 1) if p.is_shard()
+                               and p.dim > dim else p for p in x.placements)
+        return x.flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g.reshape(ctx.shape), None
+
+
+def _out_proj(o, wo):
+    """o (B,S,H,hd) -> (B,S,D) through wo (H,hd,D); on DTensors over the
+    merged heads·hd dim (`_MergeHeads`), whose backward would otherwise
+    unflatten a gradient DTensor's product may split inside a head."""
+    if not (is_dtensor(o) or is_dtensor(wo)):
+        return einsum("bshk,hkd->bsd", o, wo)
+    return einsum("bse,ed->bsd", _MergeHeads.apply(o, 2),
+                  _MergeHeads.apply(wo, 0))
+
+
+def _proj(x, w, b=None, heads: str = "heads"):
+    """x (B,S,D) -> (B,S,heads,hd) through w (D,heads,hd), plus b. On
+    DTensors the product runs over w's flattened heads·hd columns and is
+    placed as the reference places the heads (``heads`` split over "model"
+    only where they divide) before the unflatten: DTensor cannot unflatten
+    a dim split inside a head, and its product may choose to split the
+    columns anyhow."""
+    if not (is_dtensor(x) or is_dtensor(w)):
+        y = einsum("bsd,dhk->bshk", x, w)
+        return y if b is None else y + b
+    d, h, hd = w.shape
+    y = einsum("bsd,de->bse", x, _MergeHeads.apply(w, 1) if is_dtensor(w)
+               else w.reshape(d, h * hd))
+    bb, s = y.shape[:2]
+    mesh = y.device_mesh
+    want = sharding.placements(sharding.spec_for(
+        (bb, s, h, hd), ("batch", "seq", heads, None), mesh), mesh)
+    if tuple(y.placements) != want:
+        y = y.redistribute(mesh, want)
+    y = y.view(bb, s, h, hd)
     return y if b is None else y + b
 
 
 def kv_of(p, x):
     """The (K, V) an attention's weights form from x (B,T,D)."""
-    return _proj(x, p["wk"], p.get("bk")), _proj(x, p["wv"], p.get("bv"))
+    return (_proj(x, p["wk"], p.get("bk"), "kv_heads"),
+            _proj(x, p["wv"], p.get("bv"), "kv_heads"))
 
 
 def _qkv(cfg, p, x):
@@ -233,7 +292,7 @@ def apply_attention(cfg, p, x, positions, *, causal=True, window="cfg",
     k = shard(k, "batch", "seq", "kv_heads", None)
     o = attend(q, k, v, causal=causal, window=window, impl=impl)
     o = shard(o, "batch", "seq", "heads", None)
-    return einsum("bshk,hkd->bsd", o, p["wo"])
+    return _out_proj(o, p["wo"])
 
 
 def apply_cross_attention(cfg, p, x, cross, *, impl="auto"):
@@ -245,7 +304,7 @@ def apply_cross_attention(cfg, p, x, cross, *, impl="auto"):
     k = shard(cross["k"], "batch", "seq", "kv_heads", None)
     o = attend(q, k, cross["v"], causal=False, window=None, impl=impl)
     o = shard(o, "batch", "seq", "heads", None)
-    return einsum("bshk,hkd->bsd", o, p["wo"])
+    return _out_proj(o, p["wo"])
 
 
 # ------------------------------------------------------------------ prefill
@@ -265,20 +324,74 @@ def apply_attention_prefill(cfg, p, x, positions, cache, *, causal=True,
     if cfg.rope != "none":
         rot = rope_mod.positional(cfg, positions)
         q, k = rot(q), rot(k)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
     o = attend(q, k, v, causal=causal, window=window, impl=impl)
-    out = einsum("bshk,hkd->bsd", o, p["wo"])
+    o = shard(o, "batch", "seq", "heads", None)
+    out = _out_proj(o, p["wo"])
 
-    b, s = k.shape[:2]
+    s = k.shape[1]
     t = cache["k"].shape[1]
     keep = min(s, t)
-    rows = torch.arange(b, device=k.device)[:, None]
-    slots = (positions[:, s - keep:] % t).long()          # (B, keep)
-    cache["k"][rows, slots] = k[:, s - keep:].to(cache["k"].dtype)
-    cache["v"][rows, slots] = v[:, s - keep:].to(cache["v"].dtype)
+    slots = positions[:, s - keep:] % t                   # (B, keep)
+    scatter_slots(cache["k"], slots, k[:, s - keep:])
+    scatter_slots(cache["v"], slots, v[:, s - keep:])
     return out, cache
 
 
+def scatter_slots(cache, slots, vals) -> None:
+    """cache[b, slots[b, j]] = vals[b, j] in place, cast to the cache's
+    dtype: cache (B, T, ...), slots (B, n) int, vals (B, n, ...). On a
+    DTensor cache each rank writes, under `local_map`, the entries whose
+    slot lies in its own block of T, [r·T_l, (r+1)·T_l), into its own rows
+    (the values go whole along n to every rank of the mesh dims that split
+    T); nothing else is written or sent."""
+    if not is_dtensor(cache):
+        rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
+        cache[rows, slots.long()] = vals.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = cache.device_mesh
+    pc = tuple(cache.placements)
+    pv = tuple(Replicate() if p.is_shard(1) else p for p in pc)
+    prow = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in pc)
+    t_l = cache.to_local().shape[1]
+    block = sharding.block_index(mesh, pc, 1)
+    if not is_dtensor(slots):
+        slots = sharding.distribute(slots, (None, None), mesh)
+    if not is_dtensor(vals):
+        vals = sharding.distribute(vals, (None,) * vals.ndim, mesh)
+
+    def local(c, sl, v):
+        # an entry outside the block rewrites its row's first entry inside
+        # it with the same value (or, with none inside, slot 0 with its own
+        # content): duplicate indices that all write the same bits, with no
+        # data-dependent shape (no host sync; the meta device runs it)
+        sl = sl.long() - block * t_l
+        ok = (sl >= 0) & (sl < t_l)
+        rows = torch.arange(c.shape[0], device=c.device)
+        first = ok.int().argmax(1)
+        has = ok[rows, first]
+        v = v.to(c.dtype)
+        to = torch.where(has, sl[rows, first], torch.zeros_like(first))
+        fill = torch.where(has.view((-1,) + (1,) * (v.ndim - 2)),
+                           v[rows, first], c[rows, to])
+        bcast = (-1, sl.shape[1]) + (1,) * (v.ndim - 2)
+        c[rows[:, None], torch.where(ok, sl, to[:, None])] = torch.where(
+            ok.view(bcast), v, fill[:, None])
+        return c
+    local_map(local, out_placements=list(pc), in_placements=(pc, prow, pv),
+              device_mesh=mesh, redistribute_inputs=True)(cache, slots, vals)
+
+
 # ------------------------------------------------------------------ decode
+def cache_axes():
+    """The logical axes of an attention cache's (B, T, KV, hd) leaves."""
+    return {"k": ("batch", "cache_seq", "kv_heads", None),
+            "v": ("batch", "cache_seq", "kv_heads", None)}
+
+
 def apply_attention_decode(cfg, p, x, cache, pos, *, window="cfg",
                            cross=False):
     """One-token decode. x (B,1,D); cache k/v (B,T,KV,hd), updated in
@@ -298,6 +411,7 @@ def apply_attention_decode(cfg, p, x, cache, pos, *, window="cfg",
     t = cache["k"].shape[1]
     q = _proj(x, p["wq"], p.get("bq"))
     pos_r = torch.as_tensor(pos, device=x.device).to(torch.int32).expand(b)
+    pos_r = replicate_like(pos_r, x)
     if not cross:
         k1, v1 = kv_of(p, x)
         if cfg.rope != "none":
@@ -306,10 +420,9 @@ def apply_attention_decode(cfg, p, x, cache, pos, *, window="cfg",
         # a frozen row past the cache end writes its last slot, as JAX's
         # dynamic_update_slice clamps
         slot = (pos_r % t if window is not None else pos_r).clamp(max=t - 1)
-        rows = torch.arange(b, device=x.device)
-        cache["k"][rows, slot.long()] = k1[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, slot.long()] = v1[:, 0].to(cache["v"].dtype)
+        scatter_slots(cache["k"], slot[:, None], k1)
+        scatter_slots(cache["v"], slot[:, None], v1)
     k, v = cache["k"], cache["v"]
     dt = torch.promote_types(q.dtype, k.dtype)
     o = ops.decode_attention(q.to(dt), k.to(dt), v.to(dt), pos_r)
-    return einsum("bshk,hkd->bsd", o, p["wo"]), cache
+    return _out_proj(o, p["wo"]), cache

@@ -94,7 +94,7 @@ def apply_dense_block_prefill(cfg, p, x, positions, cache, *, impl="auto"):
         impl=impl)
     x = x + h
     x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x))
-    return x, c
+    return shard(x, "batch", "seq", "embed"), c
 
 
 def apply_moe_block_prefill(cfg, p, x, positions, cache, *, impl="auto"):
@@ -104,14 +104,14 @@ def apply_moe_block_prefill(cfg, p, x, positions, cache, *, impl="auto"):
         cfg, p["attn"], apply_norm(cfg, p["ln1"], x), positions, cache,
         impl=impl)
     x, _ = _moe_ffn(cfg, p, x + h)
-    return x, c
+    return shard(x, "batch", "seq", "embed"), c
 
 
 def apply_ssm_block_prefill(cfg, p, x, *, cache_dtype=None):
     y, c = ssm_mod.apply_ssm_prefill(cfg, p["ssm"],
                                      apply_norm(cfg, p["ln1"], x),
                                      cache_dtype=cache_dtype)
-    return x + y, c
+    return shard(x + y, "batch", "seq", "embed"), c
 
 
 def apply_decoder_block_prefill(cfg, p, x, cross, positions, cache, *,
@@ -127,7 +127,7 @@ def apply_decoder_block_prefill(cfg, p, x, cross, positions, cache, *,
     x = x + attn_mod.apply_cross_attention(
         cfg, p["cross"], apply_norm(cfg, p["ln2"], x), cross, impl=impl)
     x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln3"], x))
-    return x, c
+    return shard(x, "batch", "seq", "embed"), c
 
 
 def apply_dense_block_decode(cfg, p, x, cache, pos, *, window="cfg"):

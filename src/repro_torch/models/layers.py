@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.sharding import shard
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -185,7 +186,50 @@ def embed_schema(cfg):
 
 
 def embed_tokens(cfg, p, tokens):
+    """The token embeddings: ``p["tok"][tokens]``; a DTensor table through
+    `_embed_on_shards`."""
+    if sharding.is_dtensor(p["tok"]):
+        return _embed_on_shards(p["tok"], tokens)
     return p["tok"][tokens]
+
+
+def _embed_on_shards(tok, tokens):
+    """``tok[tokens]`` of a DTensor table under `local_map`: the table whole
+    over the mesh dims that do not split its vocab (an FSDP gather), each
+    rank the rows of its own vocab block (zeros for a token outside it, so
+    the output is a `Partial` sum over the dims that split the vocab) for
+    its own rows of tokens; the table's gradient is each rank's block's,
+    partial over the dims that split the tokens. DTensor's own rules for
+    the lookup's backward fail on a 2-D mesh (torch 2.11's `index_put`,
+    2.13's `embedding_dense_backward` from a partial gradient). Without a
+    vocab split every row is in the block, and the rows are the plain
+    lookup's."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = tok.device_mesh
+    if not sharding.is_dtensor(tokens):
+        tokens = sharding.distribute(tokens, (None,) * tokens.ndim, mesh)
+    ptab = tuple(Shard(0) if q.is_shard(0) else Replicate()
+                 for q in tok.placements)
+    ptok = tuple(Shard(0) if q.is_shard(0) and not t.is_shard(0)
+                 else Replicate() for q, t in zip(tokens.placements, ptab))
+    pout = tuple(Partial() if t.is_shard(0) else q
+                 for q, t in zip(ptok, ptab))
+    n_blocks = math.prod(mesh.size(i) for i, t in enumerate(ptab)
+                         if t.is_shard(0))
+    v_l = tok.shape[0] // n_blocks
+    first = sharding.block_index(mesh, ptab, 0) * v_l
+
+    def local(t, ids):
+        off = ids.long() - first
+        ok = (off >= 0) & (off < v_l)
+        rows = t[off.clamp(0, v_l - 1)]
+        return torch.where(ok[..., None], rows, torch.zeros_like(rows))
+    return local_map(local, out_placements=list(pout),
+                     in_placements=(ptab, ptok),
+                     in_grad_placements=(sharding.grad_placements(ptab, ptok),
+                                         ptok),
+                     device_mesh=mesh, redistribute_inputs=True)(tok, tokens)
 
 
 def unembed(cfg, p, x):

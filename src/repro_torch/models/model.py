@@ -47,6 +47,12 @@ loss). `param_axes` gives the parameters' logical axes (on a mesh
 `sharding.distribute_tree` places them as DTensors) and `input_specs` the
 inputs' (`INPUT_AXES`; beside DTensor parameters the forward places the
 batch by them).
+
+Sharded serving: with DTensor parameters `prefill` and `decode_step` place
+the tokens by ("batch", None), keep pos replicated, and hold the cache as
+DTensors placed by `decode_cache_axes` (its attention slots split over
+"cache_seq"); `init_decode_caches(..., mesh=)` makes such a cache. The
+reference's `shard` sites of the prefill are kept (no-ops without a mesh).
 """
 from __future__ import annotations
 
@@ -242,6 +248,12 @@ def _input(params, name: str, x, dev) -> torch.Tensor:
                                INPUT_AXES[name])
 
 
+def _mesh_of(params):
+    """The mesh of DTensor parameters, or None."""
+    tok = params["embed"]["tok"]
+    return tok.device_mesh if sharding.is_dtensor(tok) else None
+
+
 def _positions(b: int, s: int, dev) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
 
@@ -368,15 +380,19 @@ def fill_cross_caches(cfg: ArchConfig, params, enc):
     """The cross-attention K/V cache from the encoder output enc (B, T, D):
     {"k", "v"} of (layers, B, T, KV, hd) in enc's dtype, each layer's
     formed once and written into its slice (the enc-dec prefill hand-off
-    the serving path uses before `decode_step`)."""
+    the serving path uses before `decode_step`); DTensors placed by the
+    cache's axes when enc is one."""
     b, t, _ = enc.shape
     shape = (cfg.n_layers, b, t, cfg.n_kv_heads, cfg.head_dim)
-    cross = {n: torch.empty(shape, dtype=enc.dtype, device=enc.device)
+    mesh = enc.device_mesh if sharding.is_dtensor(enc) else None
+    dev = enc.to_local().device if mesh is not None else enc.device
+    axes = _with_layers(attn_mod.cache_axes())
+    cross = {n: _zeros(shape, axes[n], enc.dtype, dev, mesh)
              for n in ("k", "v")}
     for i, p_l in enumerate(params["layers"]):
         k, v = attn_mod.kv_of(p_l["cross"], enc)
-        cross["k"][i].copy_(k)
-        cross["v"][i].copy_(v)
+        sharding.copy_into(cross["k"][i], k)
+        sharding.copy_into(cross["v"][i], v)
     return cross
 
 
@@ -426,14 +442,17 @@ def prefill(cfg: ArchConfig, params, inputs: Dict[str, Any], max_len: int, *,
     Returns (last_logits (B, V) — the next-token logits, cache)."""
     check_family(cfg)
     dev, tokens = _device_inputs(params, inputs["tokens"], device)
+    tokens = _input(params, "tokens", tokens, dev)
     if cfg.family == "audio":
         return _prefill_audio(cfg, params, inputs, tokens, dev, max_len,
                               impl=impl, cache_dtype=cache_dtype)
     x = _embed(cfg, params, inputs, tokens, dev)
     b, s, _ = x.shape
-    positions = _positions(b, s, dev)
+    x = sharding.shard(x, "batch", "seq", "embed")
+    positions = _input(params, "tokens", _positions(b, s, dev), dev)
     cdt = torch_dtype(cache_dtype) if cache_dtype is not None else x.dtype
-    cache = init_decode_caches(cfg, b, max_len, cdt, device=dev)
+    cache = init_decode_caches(cfg, b, max_len, cdt, device=dev,
+                               mesh=_mesh_of(params))
     if cfg.family in ("ssm", "hybrid"):
         conv, state = cache["ssm"]["conv"], cache["ssm"]["state"]
         period = _shared_period(cfg)
@@ -444,8 +463,8 @@ def prefill(cfg: ArchConfig, params, inputs: Dict[str, Any], max_len: int, *,
                     _shared_view(cache, i // period), impl=impl)
             x, c = blocks.apply_ssm_block_prefill(cfg, p_l, x,
                                                   cache_dtype=cdt)
-            conv[i].copy_(c["conv"])
-            state[i].copy_(c["state"])
+            sharding.copy_into(conv[i], c["conv"])
+            sharding.copy_into(state[i], c["state"])
     else:
         block = (blocks.apply_moe_block_prefill if cfg.family == "moe" else
                  blocks.apply_dense_block_prefill)
@@ -460,12 +479,13 @@ def _prefill_audio(cfg, params, inputs, tokens, dev, max_len, *,
                    impl="auto", cache_dtype=None):
     enc = encode_audio(cfg, params, inputs["frames"], impl=impl, device=dev)
     cross = fill_cross_caches(cfg, params, enc)
-    x = _embed_decoder(cfg, params, tokens)
+    x = sharding.shard(_embed_decoder(cfg, params, tokens), "batch", "seq",
+                       "embed")
     b, s, _ = x.shape
-    positions = _positions(b, s, dev)
+    positions = _input(params, "tokens", _positions(b, s, dev), dev)
     cdt = torch_dtype(cache_dtype) if cache_dtype is not None else x.dtype
     self_c = _attn_cache(cfg, cfg.n_layers, b, _attn_len(cfg, max_len), cdt,
-                         dev)
+                         dev, _mesh_of(params))
     for i, p_l in enumerate(params["layers"]):
         x, _ = blocks.apply_decoder_block_prefill(
             cfg, p_l, x, _layer_view(cross, i), positions,
@@ -512,15 +532,44 @@ def _attn_len(cfg: ArchConfig, max_len: int) -> int:
     return min(max_len, w) if w else max_len
 
 
-def _attn_cache(cfg: ArchConfig, n: int, batch: int, t: int, dtype, dev):
+def _with_layers(axes):
+    """A cache part's axes with the leading stacked "layers" axis."""
+    return {k: ("layers",) + ax for k, ax in axes.items()}
+
+
+def _zeros(shape, logical, dtype, dev, mesh):
+    """A zeroed cache leaf; a DTensor placed by ``logical`` on ``mesh``."""
+    if mesh is None:
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    return sharding.zeros(shape, logical, mesh, dtype, dev)
+
+
+def _attn_cache(cfg: ArchConfig, n: int, batch: int, t: int, dtype, dev,
+                mesh=None):
     shape = (n, batch, t, cfg.n_kv_heads, cfg.head_dim)
-    return {k: torch.zeros(shape, dtype=dtype, device=dev)
-            for k in ("k", "v")}
+    axes = _with_layers(attn_mod.cache_axes())
+    return {k: _zeros(shape, axes[k], dtype, dev, mesh) for k in ("k", "v")}
+
+
+def decode_cache_axes(cfg: ArchConfig):
+    """The logical axes of `init_decode_caches`' tree, leaf by leaf: JAX's
+    second return value of `init_decode_caches`, with its leading "layers"
+    axis (the port's cache leaves are stacked as JAX's are)."""
+    check_family(cfg)
+    attn = _with_layers(attn_mod.cache_axes())
+    if cfg.family == "audio":
+        return {"self": attn, "cross": dict(attn)}
+    axes = {}
+    if cfg.family in ("ssm", "hybrid"):
+        axes["ssm"] = _with_layers(ssm_mod.ssm_cache_axes())
+    if cfg.family != "ssm":
+        axes["shared_attn" if _shared_period(cfg) else "attn"] = attn
+    return axes
 
 
 def init_decode_caches(cfg: ArchConfig, batch: int, max_len: int,
                        dtype=torch.bfloat16, *, device="cuda",
-                       enc_frames: int = WHISPER_ENC_FRAMES):
+                       enc_frames: int = WHISPER_ENC_FRAMES, mesh=None):
     """The zeroed decode cache: {"attn": {"k", "v"}} with leaves (layers,
     batch, T, KV, hd), T = max_len (or the window); for the SSM family
     {"ssm": {"conv", "state"}} with leaves (layers, batch, ...), the state
@@ -528,29 +577,36 @@ def init_decode_caches(cfg: ArchConfig, batch: int, max_len: int,
     "shared_attn" with (groups, batch, T, KV, hd) leaves; for the audio
     family {"self", "cross"}, the cross cache at ``enc_frames`` slots (JAX's
     WHISPER_ENC_FRAMES; its engine sizes the slot cache from `prefill`'s
-    output instead, at its own frame count). JAX also returns the leaves'
-    logical axes; the sharded cache waits for sharded serving (ROADMAP
-    A18c), so the port returns the cache alone."""
+    output instead, at its own frame count). With a ``mesh`` the leaves are
+    DTensors placed by `decode_cache_axes`, each rank allocating only its
+    own block.
+
+    JAX returns the leaves' logical axes beside the cache; the port returns
+    the cache alone, and `decode_cache_axes` gives the axes. Its callers
+    (the engine, the scheduler) take the cache as a tree of tensors to
+    index, copy and clear slot by slot, so a pair here would change every
+    one of them for a value only the sharded path reads."""
     check_family(cfg)
     dev = resolve_device(device)
     dt = torch_dtype(dtype)
     attn_len = _attn_len(cfg, max_len)
     if cfg.family == "audio":
         return {"self": _attn_cache(cfg, cfg.n_layers, batch, attn_len, dt,
-                                    dev),
+                                    dev, mesh),
                 "cross": _attn_cache(cfg, cfg.n_layers, batch, enc_frames, dt,
-                                     dev)}
+                                     dev, mesh)}
     cache = {}
     if cfg.family in ("ssm", "hybrid"):
-        one = ssm_mod.init_ssm_cache(cfg, batch, dt, dev)
-        cache["ssm"] = {k: torch.zeros((cfg.n_layers,) + tuple(v.shape),
-                                       dtype=v.dtype, device=dev)
+        one = ssm_mod.init_ssm_cache(cfg, batch, dt, "meta")
+        axes = _with_layers(ssm_mod.ssm_cache_axes())
+        cache["ssm"] = {k: _zeros((cfg.n_layers,) + tuple(v.shape), axes[k],
+                                  v.dtype, dev, mesh)
                         for k, v in one.items()}
     if cfg.family != "ssm":
         period = _shared_period(cfg)
         n = cfg.n_layers // period if period else cfg.n_layers
         cache["shared_attn" if period else "attn"] = _attn_cache(
-            cfg, n, batch, attn_len, dt, dev)
+            cfg, n, batch, attn_len, dt, dev, mesh)
     return cache
 
 
@@ -566,11 +622,13 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, pos, *,
     (logits (B,1,V), cache)."""
     check_family(cfg)
     dev, tokens = _device_inputs(params, tokens, device)
+    tokens = _input(params, "tokens", tokens, dev)
     x = embed_tokens(cfg, params["embed"], tokens)
     pos = torch.as_tensor(pos, device=dev).to(torch.int32)  # not per layer
     if cfg.family == "audio":
         b = x.shape[0]
-        x = x + sinusoid_at(pos.expand(b), cfg.d_model)[:, None].to(x.dtype)
+        pe = sinusoid_at(pos.expand(b), cfg.d_model)[:, None].to(x.dtype)
+        x = x + sharding.replicate_like(pe, x)
         # every cross slot is read: pos T - 1 on each row, one fill a step
         cross_pos = torch.full((b,), cache["cross"]["k"].shape[2] - 1,
                                dtype=torch.int32, device=dev)

@@ -357,9 +357,9 @@ def apply_moe_ep(cfg, p, x, *, mesh, batch_axes, expert_axis="model",
     to its owner and one brings the outputs back; the expert weights are
     all-gathered over the batch axes (f dim); the aux loss is averaged over
     both. A token's k outputs are summed in ascending expert id, the order
-    of the reference's scatter-add. For DTensors y is a DTensor split as
-    the blocks were and aux a replicated one; for whole tensors y is
-    gathered whole on every rank and aux is the same on every rank.
+    of the reference's scatter-add. For DTensors y is a DTensor placed by
+    ("batch", "seq", "embed") and aux a replicated one; for whole tensors y
+    is gathered whole on every rank and aux is the same on every rank.
 
     Gradients flow through every collective. With whole tensors a rank's
     gradient of ``p`` and ``x`` covers its own blocks (the ranks' sum is the
@@ -431,8 +431,15 @@ def apply_moe_ep(cfg, p, x, *, mesh, batch_axes, expert_axis="model",
         pl = [Shard(1) if n == expert_axis and seq_split else
               Shard(0) if n in {f.name for f in fsdp} else Replicate()
               for n in mesh.mesh_dim_names]
-        return (DTensor.from_local(contrib, mesh, pl, run_check=False),
-                sharding.replicate_like(aux, x))
+        y = DTensor.from_local(contrib, mesh, pl, run_check=False)
+        # placed as the activations are, by ("batch", "seq", "embed"):
+        # torch 2.11's DTensor cannot flatten (batch, seq) with the sequence
+        # split, which the next product's backward would have to
+        want = sharding.placements(sharding.spec_for(
+            tuple(y.shape), ("batch", "seq", "embed"), mesh), mesh)
+        if tuple(y.placements) != want:
+            y = y.redistribute(mesh, want)
+        return y, sharding.replicate_like(aux, x)
     if seq_split:       # reassemble the full sequence across the expert axis
         contrib = ex.gather_whole(contrib, 1)
     for dim in reversed(fsdp):          # the batch blocks, minor axis first

@@ -16,7 +16,9 @@ kernel on the card and on the CPU alike. In fp32 the two agree to the order
 of sums.
 
 The decode step updates its cache (the conv window and the fp32 state) in
-place and returns the same tensors (JAX returns new arrays).
+place and returns the same tensors (JAX returns new arrays); on a mesh the
+cache's leaves are DTensors placed by `ssm_cache_axes`, written through
+`sharding.copy_into` (each rank its own block, under `local_map`).
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamSpec, einsum, pad_front, rmsnorm
-from repro_torch.sharding import along
+from repro_torch.sharding import along, copy_into, shard
 
 CONV_WIDTH = 4
 
@@ -163,6 +165,7 @@ def apply_ssm_prefill(cfg, p, x, *, cache_dtype=None):
     Returns (y, {"conv", "state"})."""
     s = x.shape[1]
     z, xbc_raw, xh, dtv, a, bmat, cmat = _ssd_inputs(cfg, p, x)
+    xh = shard(xh, "batch", "seq", "ssm_heads", None)
     y, final = ssd_chunked(xh, dtv, a, bmat, cmat, cfg.ssm_chunk,
                            return_state=True)
     y = _ssd_output(cfg, p, x, z, xh, y)
@@ -171,7 +174,7 @@ def apply_ssm_prefill(cfg, p, x, *, cache_dtype=None):
     keep = min(s, w)
     tail = xbc_raw[:, s - keep:]
     if keep < w:
-        tail = F.pad(tail, (0, 0, w - keep, 0))
+        tail = pad_front(tail, w - keep)
     cache = {"conv": tail.to(cache_dtype or x.dtype),
              "state": final.float()}
     return y, cache
@@ -189,6 +192,12 @@ def init_ssm_cache(cfg, batch: int, dtype, device):
     }
 
 
+def ssm_cache_axes():
+    """The logical axes of an SSM cache's leaves."""
+    return {"conv": ("batch", None, "mlp"),
+            "state": ("batch", "ssm_heads", None, "state")}
+
+
 def apply_ssm_decode(cfg, p, x, cache):
     """Single-token step. x (B,1,D). The cache's "conv" and "state" are
     updated in place; returns (y (B,1,D), cache)."""
@@ -201,7 +210,7 @@ def apply_ssm_decode(cfg, p, x, cache):
                        dim=1)
     conv_out = einsum("bwc,wc->bc", window, p["conv_w"]) + p["conv_b"]
     conv_out = F.silu(conv_out)
-    cache["conv"].copy_(window[:, 1:])
+    copy_into(cache["conv"], window[:, 1:])
     xin, bmat, cmat = (conv_out[..., :di], conv_out[..., di:di + n],
                        conv_out[..., di + n:])
     xh = xin.reshape(b, h, hp)
@@ -210,8 +219,8 @@ def apply_ssm_decode(cfg, p, x, cache):
     g = torch.exp(dtv * a)                                    # (B,H)
     xd = xh.float() * dtv[..., None]
     upd = torch.einsum("bhp,bn->bhpn", xd, bmat.float())
-    state = cache["state"]
-    state.mul_(g[..., None, None]).add_(upd)
+    state = cache["state"] * g[..., None, None] + upd
+    copy_into(cache["state"], state)
     y = torch.einsum("bhpn,bn->bhp", state, cmat.float())
     y = y + xh.float() * p["d_skip"][None, :, None]
     y = y.reshape(b, di).to(x.dtype)

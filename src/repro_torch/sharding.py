@@ -191,6 +191,24 @@ def distribute_tree(tree, tree_axes, mesh):
     return map_axes(lambda t, ax: distribute(t, ax, mesh), tree, tree_axes)
 
 
+def zeros(shape: Sequence[int], logical: Sequence[Optional[str]], mesh,
+          dtype, device):
+    """A zeroed DTensor of ``shape`` placed by its logical axes on
+    ``mesh``: each rank allocates only its own block, on ``device`` (the
+    ``meta`` device allocates nothing)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    pl = placements(spec_for(tuple(shape), logical, mesh), mesh)
+    local = list(shape)
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            local[p.dim] //= mesh.size(i)
+    whole = torch.empty(tuple(shape), device="meta")
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device),
+                              mesh, pl, run_check=False, shape=whole.shape,
+                              stride=whole.stride())
+
+
 def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
@@ -246,6 +264,36 @@ def along(fn, x, dim: int):
                          "whole on every rank")
     return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
                               run_check=False)
+
+
+def copy_into(dst, src) -> None:
+    """``dst.copy_(src)`` in place (cast to ``dst``'s dtype). On a DTensor
+    ``dst`` (a cache leaf, or a layer's view of one) under `local_map`:
+    ``src`` goes to ``dst``'s placements (redistributed, or placed when it
+    is a whole tensor) and each rank copies its own block."""
+    if not is_dtensor(dst):
+        dst.copy_(src)
+        return
+    from torch.distributed.tensor.experimental import local_map
+    mesh = dst.device_mesh
+    pd = tuple(dst.placements)
+    if not is_dtensor(src):
+        src = distribute(src, (None,) * src.ndim, mesh)
+
+    def local(d, s):
+        return d.copy_(s)
+    local_map(local, out_placements=list(pd), in_placements=(pd, pd),
+              device_mesh=mesh, redistribute_inputs=True)(dst, src)
+
+
+def block_index(mesh, pl, dim: int) -> int:
+    """This rank's block index along tensor dim ``dim`` under placements
+    ``pl`` (the mesh dims that split it, the first the major)."""
+    idx = 0
+    for i, p in enumerate(pl):
+        if p.is_shard(dim):
+            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    return idx
 
 
 def grad_placements(p_in: tuple, p_main: tuple) -> tuple:

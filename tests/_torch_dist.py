@@ -227,3 +227,63 @@ def sharded_steps(steps, moe_grad, attn, mesh_shape=(2, 2)) -> dict:
         out["production"] = str(e)
     return out
 
+
+
+# =========================================================== sharded serving
+def sharded_serving(cases, mesh_shape=(2, 2)) -> dict:
+    """The sharded serving test's rank function, on a ("data", "model")
+    mesh of ``mesh_shape`` ranks (CPU, gloo). ``cases``: [(arch, capacity
+    factor or None, params, inputs, max_len, [tokens (B, 1), ...], [pos
+    (B,), ...])]: the params (port trees from JAX's weights) placed by
+    `param_axes`, `prefill` and one `decode_step` a token row at its pos.
+    Returns per case the logits (prefill's, then each step's) and the
+    final cache, whole, the cache's placements, whether every leaf is a
+    DTensor, and how many `decode_attention_lse` calls (one a rank per
+    attention layer a step whose cache splits T) the steps made."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import sharding
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as opt
+    mesh = init_device_mesh("cpu", tuple(mesh_shape),
+                            mesh_dim_names=("data", "model"))
+    lse_calls = [0]
+    plain_lse = ops.decode_attention_lse
+
+    def counted(*args):
+        lse_calls[0] += 1
+        return plain_lse(*args)
+    ops.decode_attention_lse = counted
+
+    def whole(t):
+        return (t.full_tensor() if sharding.is_dtensor(t) else t
+                ).detach().numpy()
+
+    out = {"rank": dist.get_rank(), "cases": []}
+    for arch, cf, params, inputs, max_len, toks, poss in cases:
+        cfg = get_config(arch).reduced()
+        if cf is not None:
+            cfg = dataclasses.replace(cfg, capacity_factor=cf)
+        lse_calls[0] = 0
+        with torch.no_grad(), sharding.use_mesh(mesh):
+            p = sharding.distribute_tree(params, M.param_axes(cfg), mesh)
+            last, cache = M.prefill(cfg, p, inputs, max_len, device="cpu")
+            logits = [whole(last)]
+            for tok, pos in zip(toks, poss):
+                lg, cache = M.decode_step(cfg, p, tok, cache,
+                                          torch.as_tensor(pos),
+                                          device="cpu")
+                logits.append(whole(lg)[:, 0])
+        leaves = opt.tree_leaves(cache)
+        out["cases"].append({
+            "arch": arch, "logits": logits,
+            "cache": opt.tree_map(whole, cache),
+            "placements": opt.tree_map(
+                lambda t: " ".join(str(x) for x in t.placements)
+                if sharding.is_dtensor(t) else None, cache),
+            "dtensor": all(sharding.is_dtensor(t) for t in leaves),
+            "lse_calls": lse_calls[0]})
+    ops.decode_attention_lse = plain_lse
+    return out

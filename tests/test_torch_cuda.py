@@ -289,6 +289,45 @@ def test_decode_attention_row_without_a_slot_is_zero(dev, dtype):
 # per (row, head) output vector, as chip_smoke.py holds the attention
 # kernels: max|out - want| <= 1e-2 max|want| + 1e-4
 ROW_RTOL, ROW_ATOL = 1e-2, 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kv,hd,t,m", [(36, 4, 128, 4096, 2),
+                                         (20, 20, 64, 448, 4),
+                                         (32, 32, 80, 4096, 4),
+                                         (32, 8, 120, 4096, 2)])
+def test_decode_attention_lse_splits_and_merges(dev, dtype, h, kv, hd, t, m):
+    """`decode_attention_lse`: its o equal to `decode_attention`'s (one
+    launch of the same kernel), its lse within 1e-3 of the plain
+    version's (-inf at pos -1), and T cut into m blocks, each a kernel call
+    at its local pos, merged by `merge_partials` to the whole-cache call
+    per (row, head) vector."""
+    b = 8
+    q, k, v = _attn_inputs([(b, 1, h, hd), (b, t, kv, hd), (b, t, kv, hd)],
+                           dtype, t + hd, dev)
+    pos = torch.tensor([-1, 3, t // 3, t - 1, t + 5, 7, t // 2, 2 * t],
+                       dtype=torch.int32, device=dev)
+    whole = ops.decode_attention(q, k, v, pos)
+    before = ops.LAUNCHES["decode_attention"]
+    o, lse = ops.decode_attention_lse(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == before + 1
+    assert torch.equal(o, whole)
+    _, want = dec.decode_attention_lse_plain(q, k, v, pos)
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    assert (lse[fin] - want[fin]).abs().max().item() <= 1e-3
+    t_l = t // m
+    last = torch.clamp(pos, max=t - 1)
+    parts = [ops.decode_attention_lse(
+        q, k[:, r * t_l:(r + 1) * t_l].contiguous(),
+        v[:, r * t_l:(r + 1) * t_l].contiguous(),
+        (last - r * t_l).clamp(-1, t_l - 1)) for r in range(m)]
+    merged = dec.merge_partials(torch.stack([x[0] for x in parts]),
+                                torch.stack([x[1] for x in parts]))
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(merged[0]).item() == 0
+    assert fa.row_error_ratio(merged, whole, ROW_RTOL, ROW_ATOL) <= 1
 # ring positions of a 4,096-slot cache: below T, at T - 1, past it, far
 # past it, and a row with no slot
 RING_POS = [100, 4095, 4200, 9000, -1, 0, 2047, 5000]

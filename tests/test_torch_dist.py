@@ -139,7 +139,8 @@ def test_sharded_fleet_two_ranks_and_resume(tmp_path):
         ((12, 12, 9), {"mesh_pods": 1}),
         ((12, 6, 9), {"mesh_pods": 1, "ckpt_dir": d, "ckpt_every": 4,
                       "plan_T": 12}),
-        ((12, 12, 9), {"mesh_pods": 1, "ckpt_dir": d, "ckpt_every": 4})])
+        ((12, 12, 9), {"mesh_pods": 1, "ckpt_dir": d, "ckpt_every": 4})],
+        timeout=60)
     ref = _torch_dist.fleet_run(12, 20, 5)
     for rank in runs:
         sharded, full, _, resumed = rank
@@ -154,7 +155,8 @@ def test_sharded_fleet_pods_and_fallback():
     """4 ranks: 2 pods × 2 with M 16 over ("pod", "data"), and M 10 on a
     4-rank data mesh, which does not divide: the one-device path."""
     runs = spawn_local(4, _torch_dist.fleet_runs, [
-        ((16, 20, 5), {"mesh_pods": 2}), ((10, 20, 4), {"mesh_pods": 1})])
+        ((16, 20, 5), {"mesh_pods": 2}), ((10, 20, 4), {"mesh_pods": 1})],
+        timeout=90)
     ref16 = _torch_dist.fleet_run(16, 20, 5)
     ref10 = _torch_dist.fleet_run(10, 20, 4)
     for pods, fallback in runs:
@@ -252,7 +254,7 @@ def test_moe_expert_parallel_on_two_by_two_ranks(ep_reference):
     cfg = get_config("olmoe-1b-7b").reduced()
     assert cfg.capacity_factor < 64
     runs = spawn_local(4, _torch_dist.moe_ep_run, path, (2, 2),
-                       (64.0, cfg.capacity_factor))
+                       (64.0, cfg.capacity_factor), timeout=90)
     p = {k: torch.from_numpy(ref[k]) for k in _torch_dist.MOE_KEYS}
     with torch.no_grad():
         y_port, _ = moe.apply_moe(dataclasses.replace(cfg,

@@ -39,6 +39,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -368,10 +369,30 @@ ATTN = [((4, 8, 4, 16), 1, True, "auto", None),
         ((2, 1024, 4, 16), 1, True, "chunked", 300)]
 
 
+def _jax_steps(family, jcfg, jparams, batches):
+    """JAX's one-device `make_train_step` over ``batches``: the metrics and
+    the final params in the port's layout."""
+    with pytest.MonkeyPatch.context() as mp:
+        if family == "moe":
+            mp.setattr(jmoe, "apply_moe_auto", _jax_ep_moe)
+        jstep = jax.jit(jts.make_train_step(jcfg, jopt.AdamWConfig(
+            **ADAMW), remat=False))
+        jst = jopt.init_adamw(jopt.AdamWConfig(**ADAMW), jparams)
+        jp, metrics = jparams, []
+        for batch in batches:
+            jp, jst, jm = jstep(jp, jst, {k: jnp.asarray(v)
+                                          for k, v in batch.items()})
+            metrics.append({k: float(jm[k]) for k in ("loss",
+                                                      "grad_norm")})
+    return metrics, [t.numpy() for t in opt.tree_leaves(
+        convert.tree_from_jax(jax.tree.map(np.asarray, jp), "cpu"))]
+
+
 @pytest.fixture(scope="module")
 def sharded(tmp_path_factory):
-    """JAX's one-device steps, then one spawn of 2 × 2 gloo ranks."""
-    steps, want = [], {}
+    """One spawn of 2 × 2 gloo ranks, and JAX's one-device steps beside it
+    (in this process while the ranks run)."""
+    steps, refs = [], []
     for family, (arch, n) in STEPS.items():
         jcfg, cfg = jget_config(arch).reduced(), get_config(arch).reduced()
         cf = 64.0 if family == "moe" else None
@@ -382,20 +403,7 @@ def sharded(tmp_path_factory):
                                                            jparams),
                                          device="cpu")
         batches = [_batch(cfg, 20 + i) for i in range(n)]
-        with pytest.MonkeyPatch.context() as mp:
-            if family == "moe":
-                mp.setattr(jmoe, "apply_moe_auto", _jax_ep_moe)
-            jstep = jax.jit(jts.make_train_step(jcfg, jopt.AdamWConfig(
-                **ADAMW), remat=False))
-            jst = jopt.init_adamw(jopt.AdamWConfig(**ADAMW), jparams)
-            jp, metrics = jparams, []
-            for batch in batches:
-                jp, jst, jm = jstep(jp, jst, {k: jnp.asarray(v)
-                                              for k, v in batch.items()})
-                metrics.append({k: float(jm[k]) for k in ("loss",
-                                                          "grad_norm")})
-        want[family] = (metrics, [t.numpy() for t in opt.tree_leaves(
-            convert.tree_from_jax(jax.tree.map(np.asarray, jp), "cpu"))])
+        refs.append((family, jcfg, jparams, batches))
         steps.append((arch, cf, params, ADAMW, batches))
     cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(),
                               capacity_factor=64.0)
@@ -410,10 +418,12 @@ def sharded(tmp_path_factory):
         k, v = (torch.randn(qs[:2] + (kv, qs[3]), generator=gen)
                 for _ in range(2))
         attn.append((q, k, v, causal, impl, window))
-    ranks = spawn_local(4, _torch_dist.sharded_steps, steps, (mp_, x, w),
-                        attn, timeout=600)
-    return {"ranks": ranks, "want": want, "moe": (cfg, mp_, x, w),
-            "attn": attn}
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(spawn_local, 4, _torch_dist.sharded_steps, steps,
+                            (mp_, x, w), attn, timeout=180)
+        want = {ref[0]: _jax_steps(*ref) for ref in refs}
+        return {"ranks": ranks.result(), "want": want,
+                "moe": (cfg, mp_, x, w), "attn": attn}
 
 
 @pytest.mark.parametrize("family", list(STEPS))
